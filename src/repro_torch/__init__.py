@@ -1,0 +1,16 @@
+"""repro_torch — the PyTorch/CUDA port of `repro`, for an NVIDIA H100.
+
+Module paths and public names mirror the JAX package `repro`, so every
+port module has exactly one counterpart there; inside, the code is plain
+PyTorch on tensors with an explicit `device`. Entry points run on `cuda`
+unless the caller passes `device="cpu"` (`resolve_device`). The package
+imports neither `jax` nor anything of `repro`.
+
+Ported so far: the replicated serving path of the DAC family (poe, gpoe,
+bcm, rbcm and their centralized references) behind `repro_torch.fleet`,
+with the streamed posterior mean on a hand-written CUDA kernel
+(`kernels/csrc/rbf_matvec.cu`). ROADMAP.md lists what is still to come.
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

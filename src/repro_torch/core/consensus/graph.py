@@ -1,0 +1,92 @@
+"""Algebraic graph theory foundations (paper §2.1).
+
+Counterpart of `repro.core.consensus.graph`. Graphs are dense float64
+adjacency matrices A (M, M) on the CPU — fleets of a few hundred agents at
+most — and consumers move them to their own device and dtype.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _path(M: int) -> np.ndarray:
+    A = np.zeros((M, M))
+    for i in range(M - 1):
+        A[i, i + 1] = A[i + 1, i] = 1.0
+    return A
+
+
+def path_graph(M: int) -> torch.Tensor:
+    return torch.from_numpy(_path(M))
+
+
+def cycle_graph(M: int) -> torch.Tensor:
+    A = _path(M)
+    if M > 2:
+        A[0, M - 1] = A[M - 1, 0] = 1.0
+    return torch.from_numpy(A)
+
+
+def complete_graph(M: int) -> torch.Tensor:
+    return torch.from_numpy(np.ones((M, M)) - np.eye(M))
+
+
+def random_connected_graph(M: int, p: float, seed: int = 0) -> torch.Tensor:
+    """Erdos-Renyi edges overlaid on a path (guarantees connectivity).
+
+    Draws with numpy's `default_rng(seed)` exactly as the reference does,
+    so both packages build the same graph from the same seed."""
+    rng = np.random.default_rng(seed)
+    A = _path(M)
+    extra = np.triu(rng.random((M, M)) < p, 1)
+    return torch.from_numpy(np.maximum(A, extra + extra.T))
+
+
+def degree_matrix(A: torch.Tensor) -> torch.Tensor:
+    return torch.diag(A.sum(dim=1))
+
+
+def laplacian(A: torch.Tensor) -> torch.Tensor:
+    return degree_matrix(A) - A
+
+
+def max_degree(A: torch.Tensor) -> torch.Tensor:
+    """Delta = max_i sum_{j != i} a_ij."""
+    return A.sum(dim=1).max()
+
+
+def perron(A: torch.Tensor, eps) -> torch.Tensor:
+    """P = I - eps * L (paper §2.1)."""
+    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    return eye - eps * laplacian(A)
+
+
+def _reach(A, alive=None) -> np.ndarray:
+    """Boolean reachability (M, M) by Floyd-Warshall on the dense graph,
+    restricted to the live subgraph when `alive` (M,) is given."""
+    An = np.asarray(torch.as_tensor(A).cpu()) > 0
+    M = An.shape[0]
+    if alive is not None:
+        live = np.asarray(alive).astype(bool)
+        An = An & live[:, None] & live[None, :]
+    dist = np.full((M, M), np.inf)
+    np.fill_diagonal(dist, 0)
+    dist[An] = 1
+    for k in range(M):
+        dist = np.minimum(dist, dist[:, k:k + 1] + dist[k:k + 1, :])
+    return np.isfinite(dist)
+
+
+def is_connected(A) -> bool:
+    return bool(_reach(A).all())
+
+
+def connected_components(A, alive=None) -> np.ndarray:
+    """Component labels (M,) int: nodes i, j share a label iff connected.
+
+    Labels are the smallest member index of each component. `alive` (M,)
+    restricts the graph to the live subgraph first: dead nodes lose every
+    incident edge and come out as singleton components."""
+    reach = _reach(A, alive)
+    return np.array([int(np.flatnonzero(row)[0]) for row in reach])

@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels of the port and their plain versions.
+
+  ref.py          plain PyTorch oracles (counterpart of repro.kernels.ref)
+  rbf_matvec.py   launch wrapper of csrc/rbf_matvec.cu (replaces the Pallas
+                  kernel repro/kernels/rbf_matvec.py:rbf_matvec_pallas)
+  ops.py          public ops with the reference's signatures
+  _build.py       nvcc build of csrc/*.cu and the ctypes loader
+
+Nothing here builds or loads CUDA code at import time.
+"""

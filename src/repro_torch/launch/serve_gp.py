@@ -1,0 +1,131 @@
+"""GP serving launcher — a thin CLI overlay on `repro_torch.fleet.GPFleet`.
+
+Counterpart of the default replicated mode of `repro.launch.serve_gp`:
+build synthetic fleet data (a GP field sampled at random inputs, stripe-
+partitioned over the agents), cache the factors at the true
+hyperparameters, coalesce ragged requests into fixed-size micro-batches,
+serve them through `GPFleet.predict` and print the rate.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_gp --agents 8 \
+      --per-agent 128 --method rbcm --requests 64 --batch 256 --chunk 128
+
+It runs on the card unless `--device cpu` is given, in float32 with the
+streamed mean (the hand-written rbf_matvec kernel) unless `--no-stream`.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..core.gp import pack, stripe_partition
+from ..data import gp_sample_field, random_inputs
+from ..device import resolve_device
+from ..fleet import FleetConfig, GPFleet, method_names
+
+_TRUE_THETA = ([1.2, 0.3], 1.3, 0.1)
+
+
+def build_data(generator: torch.Generator, M: int, per_agent: int,
+               dtype=torch.float32):
+    """Synthetic fleet data: sample a GP field, stripe-partition."""
+    lt_true = pack(*_TRUE_THETA, dtype=dtype, device=generator.device)
+    X = random_inputs(generator, M * per_agent, dtype=dtype)
+    _, y = gp_sample_field(generator, X, lt_true)
+    return stripe_partition(X, y, M)
+
+
+def request_stream(generator: torch.Generator, n_requests: int,
+                   max_size: int, dtype=torch.float32):
+    """Ragged prediction requests (what a front door actually receives)."""
+    sizes = np.random.default_rng(0).integers(1, max_size + 1,
+                                              size=n_requests)
+    return [random_inputs(generator, int(s), dtype=dtype) for s in sizes]
+
+
+def micro_batches(requests, batch: int):
+    """Concatenate ragged requests and cut into fixed-size micro-batches
+    (tail zero-padded). Returns (batches (n, batch, D), total_queries,
+    slices per request)."""
+    sizes = [int(r.shape[0]) for r in requests]
+    allq = torch.cat(requests)
+    total = allq.shape[0]
+    pad = (-total) % batch
+    allq = torch.cat([allq, allq.new_zeros(pad, allq.shape[1])])
+    offs = [0]
+    for s in sizes:
+        offs.append(offs[-1] + s)
+    slices = list(zip(offs[:-1], offs[1:]))
+    return allq.reshape(-1, batch, allq.shape[1]), total, slices
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    methods = sorted(method_names())
+    cen = [f"cen_{m}" for m in methods]
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--agents", type=int, default=8)
+    ap.add_argument("--per-agent", type=int, default=256)
+    ap.add_argument("--method", default="rbcm",
+                    type=lambda s: s.replace("-", "_"),
+                    choices=methods + cen, help="prediction method")
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=256,
+                    help="micro-batch size")
+    ap.add_argument("--chunk", type=int, default=128,
+                    help="engine query-tile size")
+    ap.add_argument("--dac-iters", type=int, default=100)
+    ap.add_argument("--train-iters", type=int, default=0,
+                    help="training rounds; only 0 (serve the true "
+                         "hyperparameters) until training is ported")
+    ap.add_argument("--no-stream", action="store_true",
+                    help="disable the streaming rbf_matvec mean path")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    args = ap.parse_args(argv)
+    if args.train_iters:
+        ap.error("--train-iters: training is not yet ported to repro_torch "
+                 "(ROADMAP queue A item 2); use 0")
+    base = args.method[4:] if args.method.startswith("cen_") else args.method
+    cfg = FleetConfig(num_agents=args.agents, method=base, chunk=args.chunk,
+                      dac_iters=args.dac_iters,
+                      stream_mean=not args.no_stream)
+    device = resolve_device(args.device)
+    gen = torch.Generator(device).manual_seed(0)
+
+    t0 = time.perf_counter()
+    Xp, yp = build_data(gen, args.agents, args.per_agent)
+    fleet = GPFleet(cfg, device=device).fit(
+        Xp, yp, log_theta0=pack(*_TRUE_THETA), train=False)
+    _sync(device)
+    print(f"fleet: M={args.agents} agents x Ni={args.per_agent} points "
+          f"(replicated, {device}); fitted in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    requests = request_stream(gen, args.requests, args.batch)
+    batches, total, slices = micro_batches(requests, args.batch)
+    print(f"queue: {args.requests} requests, {total} queries "
+          f"-> {batches.shape[0]} micro-batches of {args.batch}")
+
+    fleet.predict(batches[0], method=args.method)       # warm-up
+    _sync(device)
+    t0 = time.perf_counter()
+    means = [fleet.predict(b, method=args.method)[0] for b in batches]
+    _sync(device)
+    dt = time.perf_counter() - t0
+    flat = torch.cat(means)
+    answers = [flat[a:b] for a, b in slices]            # per request
+    print(f"{args.method}: served {total} queries in {dt * 1e3:.1f} ms "
+          f"({total / dt:.0f} q/s, {len(batches) / dt:.1f} batches/s, "
+          f"stream_mean={cfg.stream_mean}); "
+          f"last request -> {answers[-1].shape[0]} predictions")
+
+
+if __name__ == "__main__":
+    main()

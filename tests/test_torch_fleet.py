@@ -1,0 +1,150 @@
+"""The port's fleet layer (repro_torch.fleet) and launcher against the JAX
+package: config fields and JSON, capability validation, and the whole
+slice end to end — GPFleet.fit(train=False).predict on the same float64
+arrays — to 1e-9 relative (same algorithms, different LAPACK/BLAS
+rounding; see tests/test_torch_prediction.py).
+"""
+import dataclasses
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.fleet import FleetConfig as JFleetConfig
+from repro.fleet import GPFleet as JGPFleet
+from repro_torch.fleet import (METHODS, FleetConfig, GPFleet, get_method,
+                               validate_config)
+from repro_torch.launch import serve_gp
+
+torch.set_num_threads(2)
+
+TOL = 1e-9
+LOG_THETA = np.log([1.2, 0.3, 1.3, 0.1])
+
+
+def _close(got, want, tol=TOL):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(3)
+    X = rng.uniform(0, 2, (4 * 40, 2))
+    X = X[np.argsort(X[:, 0])]
+    y = np.cos(2 * X[:, 0] + X[:, 1]) + 0.1 * rng.normal(size=len(X))
+    return X.reshape(4, 40, 2), y.reshape(4, 40), rng.uniform(0, 2, (45, 2))
+
+
+def test_config_fields_defaults_and_json_match_reference():
+    ours = {f.name: f.default for f in dataclasses.fields(FleetConfig)}
+    theirs = {f.name: f.default for f in dataclasses.fields(JFleetConfig)}
+    assert ours == theirs
+    assert json.loads(FleetConfig().to_json()) == \
+        json.loads(JFleetConfig().to_json())
+    cfg = JFleetConfig(num_agents=6, graph="random", method="gpoe",
+                       stream_mean=True)
+    assert FleetConfig.from_json(cfg.to_json()).to_dict() == cfg.to_dict()
+    with pytest.raises(ValueError, match="theta0"):
+        FleetConfig(input_dim=3)
+
+
+@pytest.mark.parametrize("graph", ["path", "cycle", "complete", "random"])
+@pytest.mark.parametrize("stream_mean", [False, True])
+def test_fleet_rbcm_matches_reference(data, graph, stream_mean):
+    """The slice end to end: fit at known theta, serve rBCM on a ragged
+    query batch."""
+    Xp, yp, Xs = data
+    kw = dict(graph=graph, chunk=16, dac_iters=150, stream_mean=stream_mean)
+    fleet = GPFleet(FleetConfig(**kw), device="cpu").fit(
+        Xp, yp, log_theta0=LOG_THETA, train=False)
+    mean, var, info = fleet.predict(Xs)
+    jfleet = JGPFleet(JFleetConfig(**kw)).fit(
+        jnp.asarray(Xp), jnp.asarray(yp),
+        log_theta0=jnp.asarray(LOG_THETA), train=False)
+    jmean, jvar, _ = jfleet.predict(jnp.asarray(Xs))
+    assert mean.dtype == torch.float64 and mean.device.type == "cpu"
+    _close(mean, jmean)
+    _close(var, jvar)
+    _close(fleet.predict(Xs, method="cen_rbcm")[0],
+           jfleet.predict(jnp.asarray(Xs), method="cen_rbcm")[0])
+
+
+def test_fleet_default_theta_is_config_theta0(data):
+    Xp, yp, Xs = data
+    fleet = GPFleet(FleetConfig(), device="cpu").fit(Xp, yp, train=False)
+    jfleet = JGPFleet(JFleetConfig()).fit(jnp.asarray(Xp), jnp.asarray(yp),
+                                          train=False)
+    _close(fleet.log_theta, jfleet.log_theta, 1e-15)
+    _close(fleet.predict(Xs, method="poe")[0],
+           jfleet.predict(jnp.asarray(Xs), method="poe")[0])
+
+
+def test_fleet_float32_follows_the_inputs(data):
+    Xp, yp, Xs = (a.astype(np.float32) for a in data)
+    fleet = GPFleet(FleetConfig(stream_mean=True), device="cpu").fit(
+        Xp, yp, train=False)
+    mean, var, _ = fleet.predict(Xs)
+    assert mean.dtype == torch.float32 and bool(torch.isfinite(var).all())
+
+
+def test_fit_with_training_is_not_ported(data):
+    Xp, yp, _ = data
+    with pytest.raises(NotImplementedError, match="queue A item 2"):
+        GPFleet(FleetConfig(), device="cpu").fit(Xp, yp)
+
+
+def test_fleet_shape_errors(data):
+    Xp, yp, _ = data
+    with pytest.raises(ValueError, match="num_agents"):
+        GPFleet(FleetConfig(num_agents=5), device="cpu").fit(Xp, yp,
+                                                             train=False)
+    with pytest.raises(RuntimeError, match="fit"):
+        GPFleet(FleetConfig(), device="cpu").predict(data[2])
+
+
+@pytest.mark.parametrize("kw,err,match", [
+    (dict(method="npae"), ValueError, "not yet ported"),
+    (dict(method="nn_rbcm"), ValueError, "item 3"),
+    (dict(method="npae-sparse"), ValueError, "item 6"),
+    (dict(method="nope"), KeyError, "unknown prediction method"),
+    (dict(trainer="nope"), KeyError, "unknown trainer"),
+    (dict(sharded=True), ValueError, "item 7"),
+    (dict(online=True), ValueError, "item 5"),
+    (dict(sparse_m=8), ValueError, "item 6"),
+    (dict(cache_cross=True), ValueError, "not yet ported"),
+])
+def test_validate_config_rejects_what_is_not_ported(kw, err, match):
+    with pytest.raises(err, match=match):
+        validate_config(FleetConfig(**kw))
+    with pytest.raises(err, match=match):
+        GPFleet(FleetConfig(**kw), device="cpu")
+
+
+def test_registry_serves_the_dac_family():
+    assert sorted(METHODS) == ["bcm", "gpoe", "poe", "rbcm"]
+    assert get_method("rbcm").paper == "Alg. 8, eq. 14-15"
+
+
+def test_serve_gp_runs_on_the_cpu(capsys):
+    serve_gp.main(["--device", "cpu", "--agents", "4", "--per-agent", "32",
+                   "--requests", "5", "--batch", "32", "--chunk", "16"])
+    out = capsys.readouterr().out
+    assert "fleet: M=4 agents x Ni=32" in out
+    assert "rbcm: served" in out and "stream_mean=True" in out
+
+
+def test_serve_gp_rejects_training(capsys):
+    with pytest.raises(SystemExit):
+        serve_gp.main(["--device", "cpu", "--train-iters", "5"])
+
+
+def test_micro_batches_pad_and_slice():
+    reqs = [torch.ones(3, 2), 2 * torch.ones(6, 2)]
+    batches, total, slices = serve_gp.micro_batches(reqs, 4)
+    assert batches.shape == (3, 4, 2) and total == 9
+    assert slices == [(0, 3), (3, 9)]
+    assert float(batches.reshape(-1, 2)[9:].abs().sum()) == 0.0

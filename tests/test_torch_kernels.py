@@ -1,0 +1,168 @@
+"""The port's rbf_matvec kernel module on the CPU: its plain version against
+the JAX package's oracle and Pallas kernel (interpret mode), the batched
+op against per-agent calls, and the dispatch rule — a CPU tensor takes the
+plain version, any other tensor goes to the CUDA kernel or raises.
+
+The kernel itself runs only on a card: tests/test_torch_gpu.py holds it to
+the plain version there.
+"""
+import ast
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import _build
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rbf_matvec as K
+
+torch.set_num_threads(2)
+
+KERNEL_DIR = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels"
+
+
+def _inputs(n, m, d, seed=0, dtype=np.float64):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, d)).astype(dtype),
+            rng.normal(size=(m, d)).astype(dtype),
+            rng.normal(size=m).astype(dtype),
+            np.full(d, 0.8, dtype), 1.3)
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("n,m,d", [(100, 130, 2), (64, 97, 1), (33, 50, 5)])
+def test_plain_f64_matches_reference_oracle(n, m, d):
+    """float64 plain version (direct differences) vs the reference's Gram
+    oracle (expansion): the two forms differ by rounding only, 1e-12
+    relative to max|ref|."""
+    x1, x2, v, ls, sf = _inputs(n, m, d)
+    got = ops.rbf_matvec(torch.from_numpy(x1), torch.from_numpy(x2),
+                         torch.from_numpy(v), torch.from_numpy(ls),
+                         torch.tensor(sf, dtype=torch.float64))
+    assert got.dtype == torch.float64
+    want = jref.rbf_matvec_ref(jnp.asarray(x1), jnp.asarray(x2),
+                               jnp.asarray(v), jnp.asarray(ls), sf)
+    assert _rel(got, want) <= 1e-12
+    own = ref.rbf_matvec_ref(*(torch.from_numpy(a) for a in (x1, x2, v, ls)),
+                             sf)
+    assert _rel(got, own) <= 1e-12
+
+
+@pytest.mark.parametrize("n,m,d", [(100, 130, 2), (256, 256, 3), (300, 70, 5),
+                                   (64, 512, 1)])
+def test_plain_f32_matches_pallas_interpret(n, m, d):
+    """float32 plain version vs the reference's Pallas kernel run in
+    interpret mode, as tests/test_extensions.py runs it. Both accumulate
+    up to 512 float32 terms in different orders and forms; a check of
+    interpret mode against float64 measured 4.5e-6, so 2e-5 relative to
+    max|ref|."""
+    x1, x2, v, ls, sf = _inputs(n, m, d, seed=1, dtype=np.float32)
+    got = ops.rbf_matvec(torch.from_numpy(x1), torch.from_numpy(x2),
+                         torch.from_numpy(v), torch.from_numpy(ls),
+                         torch.tensor(sf, dtype=torch.float32))
+    assert got.dtype == torch.float32
+    want = jops.rbf_matvec(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(v),
+                           jnp.asarray(ls), sf, use_pallas=True,
+                           interpret=True)
+    assert _rel(got, want) <= 2e-5
+
+
+def test_batched_op_equals_per_agent_calls():
+    rng = np.random.default_rng(2)
+    Xs = torch.from_numpy(rng.normal(size=(29, 2)))
+    Xp = torch.from_numpy(rng.normal(size=(4, 41, 2)))
+    alpha = torch.from_numpy(rng.normal(size=(4, 41)))
+    ls, sf = torch.tensor([1.2, 0.3], dtype=torch.float64), \
+        torch.tensor(1.3, dtype=torch.float64)
+    out = ops.rbf_matvec_agents(Xs, Xp, alpha, ls, sf)
+    assert out.shape == (4, 29)
+    for m in range(4):
+        assert _rel(out[m], ops.rbf_matvec(Xs, Xp[m], alpha[m], ls, sf)) \
+            <= 1e-12
+
+
+def test_cpu_path_never_loads_the_library(monkeypatch):
+    def fail(name):
+        raise AssertionError("the CPU path must not build or load CUDA code")
+    monkeypatch.setattr(_build, "load_library", fail)
+    K._library.cache_clear()
+    a, b, v = torch.rand(5, 2), torch.rand(3, 7, 2), torch.rand(3, 7)
+    out = K.rbf_matvec(a, b, v, torch.tensor([2.0]))
+    assert out.shape == (3, 5)
+
+
+def test_non_cpu_tensor_raises_when_the_loader_fails(monkeypatch):
+    """A tensor off the CPU goes to the kernel: when the library cannot be
+    built or loaded the error propagates, and the plain version never
+    runs. Meta tensors stand in for CUDA tensors on a machine without a
+    card, with the device check waived."""
+    def fail(name):
+        raise RuntimeError("nvcc not found")
+
+    def plain(*args):
+        raise AssertionError("plain version reached from a non-CPU tensor")
+    monkeypatch.setattr(_build, "load_library", fail)
+    monkeypatch.setattr(K, "rbf_matvec_plain", plain)
+    monkeypatch.setattr(K, "_check", lambda *args: None)
+    K._library.cache_clear()
+    meta = dict(device="meta", dtype=torch.float32)
+    before = K.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ops.rbf_matvec_agents(torch.empty(8, 2, **meta),
+                              torch.empty(3, 9, 2, **meta),
+                              torch.empty(3, 9, **meta),
+                              torch.ones(2, **meta), torch.ones((), **meta))
+    assert K.launches == before
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("device", "CUDA device"), ("dtype", "float32"),
+    ("contiguous", "contiguous"), ("shape", "want a")])
+def test_kernel_input_checks_raise(bad, match):
+    """The launch wrapper refuses what the kernel does not take; meta
+    tensors stand in for CUDA tensors, so every case also fails the device
+    test, which comes last."""
+    meta = dict(device="meta", dtype=torch.float32)
+    a, b, v = (torch.empty(8, 2, **meta), torch.empty(3, 9, 2, **meta),
+               torch.empty(3, 9, **meta))
+    if bad == "dtype":
+        a = a.double()
+    elif bad == "contiguous":
+        b = torch.empty(3, 2, 9, **meta).transpose(1, 2)
+    elif bad == "shape":
+        v = torch.empty(3, 8, **meta)
+    with pytest.raises((ValueError, TypeError), match=match):
+        K._check(a, b, v, torch.empty(1, **meta))
+
+
+def test_splits_fill_the_card():
+    # the serving tile: 2 query blocks x 4 agents on 132 SMs want 33
+    # splits; Ni = 8100 has 32 stages of 256 points, which caps it
+    assert K.splits_for(256, 4, 8100, 132) == 32
+    assert K.splits_for(256, 4, 300, 132) == 2
+    # a large fleet already fills the card
+    assert K.splits_for(4096, 40, 810, 132) == 1
+
+
+@pytest.mark.parametrize("module", ["rbf_matvec.py", "ops.py"])
+def test_dispatch_has_no_fallback(module):
+    """No `try` in the dispatch modules: nothing can catch a kernel failure
+    and fall back to the plain version."""
+    tree = ast.parse((KERNEL_DIR / module).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_build_hash_tracks_the_source_and_flags():
+    p = _build.library_path("rbf_matvec")
+    assert p.parent == _build.BUILD_DIR and p.name.startswith("librbf_matvec-")
+    src = (_build.CSRC / "rbf_matvec.cu").read_text()
+    assert "rbf_matvec_pallas" in src    # the source names what it replaces
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
