@@ -8,20 +8,34 @@ Phases, one JSON line each:
   build    nvcc-builds every CUDA source of the port (src/repro_torch/
            kernels/csrc/*.cu, all at once) for sm_90a.
   kernels  holds each kernel to its plain PyTorch version on the card, at
-           the serving shapes and at ragged/edge shapes, and times the
-           kernel, the plain version and a composed library yardstick with
-           CUDA events beside the kernel's lower bound.
-  serve    the main path: a paper-scale DEC-rBCM fleet (32,400 points from
-           a GP field, M = 4 agents on a path graph, 200 DAC sweeps, chunk
-           256, float32, streamed mean) fitted at the true hyperparameters
-           through GPFleet, serving 8 micro-batches of 256 queries and one
-           4,096-query call. It checks the kernel launched once per query
-           tile, that the means agree with the same experts served without
-           the kernel, and the RMSE against the noise-free field.
+           the main paths' shapes and at ragged/edge shapes, checks that
+           two nll_grad calls are bitwise equal, and times each kernel, its
+           plain version and a composed library yardstick with CUDA events
+           beside the kernel's lower bound.
+  serve    the serving path: a paper-scale DEC-rBCM fleet (32,400 points
+           from a GP field, M = 4 agents on a path graph, 200 DAC sweeps,
+           chunk 256, float32, streamed mean) fitted at the true
+           hyperparameters through GPFleet, serving 8 micro-batches of 256
+           queries and one 4,096-query call. It checks rbf_matvec launched
+           once per query tile, that the means agree with the same experts
+           served without the kernel, and the RMSE against the noise-free
+           field.
+  train    the training path: the same fleet trained from the paper's
+           theta0 with DEC-apx-GP (rho 500, kappa 10,000, 100 iterations,
+           float32) by GPFleet.fit(train=True), then serving 4,096
+           queries. It checks nll_grad launched once per iteration for the
+           whole fleet, that the summed NLL fell, the RMSE against the
+           field, and that 10 float64 iterations with the kernel agree
+           with 10 iterations with its plain version swapped in through
+           the grad_fn hook, and in float32 within float32's own distance
+           from float64; it reports the distance from the true theta and
+           each float32 trajectory's deviation from float64, and
+           the residuals of 20 float64 iterations at the paper's kappa =
+           5,000, which does not converge at this size (see TRAIN_KAPPA).
 
-With --profile it then traces one 256-query batch of the main path with
-torch.profiler and prints device time by kernel and the device's busy
-share.
+With --profile it then traces one 256-query batch of the serving path and
+one ADMM iteration of the training path with torch.profiler and prints
+device time by kernel and the device's busy share.
 
 Then it prints the kernel table as one JSON object, the card's name and
 power limit as nvidia-smi reports them, and last
@@ -33,12 +47,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+DEVICE = "cuda"                 # every phase runs on the card
 
 # H100 SXM figures for the lower bounds (bound_ms):
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA data sheet
@@ -52,8 +69,44 @@ SM_CLOCK_HZ = 1.98e9
 TRUE_THETA = ([1.2, 0.3], 1.3, 0.1)   # paper §6: (l1, l2, sigma_f, sigma_eps)
 N_TRAIN = 32_400                      # paper §6 (configs/paper_gp.py)
 BATCH, N_BATCHES, BIG = 256, 8, 4096
-REL_TOL = 1e-5                        # relative to sum_j |k_ij v_j|
+REL_TOL = 1e-5                        # relative to the sum of |terms|
 RMSE_LIMIT = 0.2                      # twice sigma_eps
+# rbf_matvec (Nt, M, Ni, D): the serving tile first, then ragged and edge
+# shapes
+RBF_MATVEC_SHAPES = [(256, 4, 8100, 2), (200, 4, 8100, 2), (131, 4, 8099, 2),
+                     (256, 4, 1013, 1), (97, 3, 777, 3), (256, 2, 555, 8),
+                     (256, 40, 810, 2)]
+# nll_grad (M, N, D) after the training shape: ragged N, other D, and the
+# paper's largest fleet (M = 40 agents of 810 points)
+NLL_GRAD_EDGE_SHAPES = [(4, 8099, 2), (4, 131, 2), (4, 1, 2), (4, 1013, 1),
+                        (3, 777, 3), (2, 555, 8), (40, 810, 2)]
+# DEC-apx-GP's proximal weight in the train phase. The paper's kappa =
+# 5,000 (FleetConfig's default) does not converge at Ni = 8,100, in float32
+# or float64: eq. 34 is a gradient step of 1 / (kappa + 2 rho deg), 1/6,000
+# at the path's ends, against an NLL curvature along log sigma_eps of
+# about 2 Ni = 16,200, so sigma_eps overshoots and the agents oscillate.
+# Theorem 1 asks kappa to grow with the local gradient's Lipschitz
+# constant, which grows with Ni. The phase reports the kappa = 5,000 run
+# without gating on it and trains with kappa = 10,000.
+TRAIN_KAPPA = 10_000.0
+PAPER_KAPPA_ITERS = 20                # float64 iterations at kappa = 5,000
+CHECK_ITERS = 10                      # ADMM iterations held kernel vs plain
+# kernel vs plain thetas after CHECK_ITERS iterations, in log theta, with
+# the iterations in float64: there the kernel is the only float32 step (the
+# op casts its operands, as the reference's Pallas path does), so the two
+# trajectories differ by the kernel's float32 sums alone. Those stay within
+# REL_TOL of the summed |terms| (the kernels phase), a few 1e-3 absolute at
+# theta0; as sigma_eps falls, inner ~ C^-1 grows like 1 / sigma_eps^2 and
+# the rounding with it, and eq. 34 divides the gradient difference by
+# kappa + 2 rho deg >= 11,000. So a step moves the trajectories apart by
+# 1e-6 to a few 1e-6, and ten steps of a converging iteration stay inside
+# 1e-4. In float32 every step of the iteration rounds, and at cond(C) ~ 1e6
+# a difference of one rounding anywhere decorrelates the Cholesky's
+# rounding errors: two float32 trajectories then drift apart by up to
+# float32's own error. So the float32 kernel and plain trajectories are
+# held to within the float32 plain trajectory's distance from float64:
+# the kernel may move theta no further than float32 arithmetic itself.
+THETA_TOL = 1e-4
 
 
 def card_line() -> str:
@@ -101,6 +154,62 @@ def rbf_matvec_bound_ms(Nt: int, M: int, Ni: int, D: int,
                                         else "operations")
 
 
+def nll_grad_bound_ms(M: int, N: int, D: int,
+                      sm_count: int) -> tuple[float, str]:
+    """Least time for the (M, D+2) sums of W = inner * sf2 exp(-d2s) on the
+    card: d2u (M, D, N, N) and inner (M, N, N) read once, params in and
+    sums out, over the memory rate; or per element one exp on the SFUs
+    and 4D + 3 FP32 flops (D fused multiply-adds for d2s, the sf2 and
+    inner products, D accumulating fused multiply-adds, the sum of W) over
+    their peak rates, whichever is larger."""
+    elems = M * N * N
+    bytes_ = 4 * (M * (D + 1) * N * N + M * (D + 1) + M * (D + 2))
+    t_bytes = bytes_ / HBM_BYTES_PER_S
+    t_flops = elems * (4 * D + 3) / FP32_FLOPS_PER_S
+    t_exp = elems / (SFU_EXP_PER_CLOCK_PER_SM * sm_count * SM_CLOCK_HZ)
+    t_ops = max(t_flops, t_exp)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                        else "operations")
+
+
+def paper_data(ctx):
+    """The paper's §6 fleet on the card, made once per run: training
+    inputs and held-out queries from ONE field draw (RFF above 4,096
+    points), so the queries' noise-free values are known. Returns
+    (Xp (4, 8100, 2), yp (4, 8100), Xq (6144, 2), fq (6144,))."""
+    if "data" not in ctx:
+        import torch
+        from repro_torch.core.gp import pack, stripe_partition
+        from repro_torch.data import gp_sample_field, random_inputs
+        dev = torch.device(DEVICE)
+        gen = torch.Generator(dev).manual_seed(ctx["seed"])
+        lt = pack(*TRUE_THETA, dtype=torch.float32, device=dev)
+        X = random_inputs(gen, N_TRAIN + N_BATCHES * BATCH + BIG,
+                          dtype=torch.float32)
+        f, y = gp_sample_field(gen, X, lt)
+        Xp, yp = stripe_partition(X[:N_TRAIN], y[:N_TRAIN], 4)
+        ctx["data"] = (Xp, yp, X[N_TRAIN:], f[N_TRAIN:])
+    return ctx["data"]
+
+
+def plain_local_grad(lt, Xi, yi):
+    """One agent's cached-geometry NLL gradient with the nll_grad kernel's
+    plain version in its place, on whatever device the inputs lie: the
+    grad_fn hook that the train phase holds the kernel path against."""
+    import torch
+    from repro_torch.core.gp import diff2_stack, inner_from_cov
+    from repro_torch.core.training import cov_from_cache
+    from repro_torch.kernels import nll_grad as G
+    D = Xi.shape[-1]
+    d2u = diff2_stack(Xi)
+    C, _ = cov_from_cache(lt, d2u)
+    theta = torch.exp(lt)
+    params = torch.cat([1 / theta[:D] ** 2, theta[D:D + 1] ** 2])
+    sums = G.nll_grad_plain(d2u, inner_from_cov(C, yi), params)
+    return torch.cat([sums[:D] * params[:D], sums[D:D + 1],
+                      theta[D + 1:] ** 2 * sums[D + 1:]])
+
+
 def phase_build(ctx):
     from repro_torch.kernels import _build
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
@@ -108,8 +217,17 @@ def phase_build(ctx):
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(names)) as ex:
         libs = list(ex.map(_build.build, names))
+    # ptxas's report of a fresh build (-Xptxas -v): registers per thread
+    # and spilled bytes over every kernel of each library
+    ptxas = {}
+    for n in fresh:
+        log = (_build.BUILD_DIR / f"{n}.log").read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
+        ptxas[n] = {"registers": [min(regs), max(regs)] if regs else None,
+                    "spill_bytes": sum(spills)}
     return {"seconds": time.perf_counter() - t0, "built": fresh,
-            "libraries": [str(p) for p in libs]}
+            "libraries": [str(p) for p in libs], "ptxas": ptxas}
 
 
 def _rel_err(torch, got, want, scale):
@@ -120,13 +238,10 @@ def _rel_err(torch, got, want, scale):
 def phase_kernels(ctx):
     import torch
     from repro_torch.kernels import rbf_matvec as K
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(dev).manual_seed(ctx["seed"] + 1)
-    # (Nt, M, Ni, D): the serving tile first, then ragged and edge shapes
-    shapes = [(256, 4, 8100, 2), (200, 4, 8100, 2), (131, 4, 8099, 2),
-              (256, 4, 1013, 1), (97, 3, 777, 3), (256, 2, 555, 8),
-              (256, 40, 810, 2)]
+    shapes = RBF_MATVEC_SHAPES
     cases = []
     for Nt, M, Ni, D in shapes:
         ls = (torch.tensor(TRUE_THETA[0], device=dev) if D == 2
@@ -159,27 +274,92 @@ def phase_kernels(ctx):
                 Nt, M, Ni, D, sms)
             ctx["rbf_matvec"] = case
         cases.append(case)
-    return {"rel_tol": REL_TOL, "rbf_matvec": cases}
+    return {"rel_tol": REL_TOL, "rbf_matvec": cases,
+            "nll_grad": nll_grad_cases(ctx, sms)}
+
+
+def nll_grad_cases(ctx, sms):
+    """nll_grad against its plain version on the card, per component
+    relative to its sum of |terms| (sum |W d2u[d]|, sum |W|, sum |diag
+    inner|), and bitwise repeatable: first at the training shape with the
+    real `inner` of the paper fleet at theta0, then ragged N, other D and
+    the paper's largest fleet (M = 40) with a random symmetric `inner`."""
+    import torch
+    from repro_torch.core.gp import diff2_stack, inner_from_cov, pack
+    from repro_torch.core.training import cov_from_cache
+    from repro_torch.fleet import FleetConfig
+    from repro_torch.kernels import nll_grad as G
+    dev = torch.device(DEVICE)
+    Xp, yp, _, _ = paper_data(ctx)
+    th0 = FleetConfig().theta0
+    lt0 = pack(list(th0[:-2]), th0[-2], th0[-1], dtype=torch.float32,
+               device=dev).expand(Xp.shape[0], -1)
+    gen = torch.Generator(dev).manual_seed(ctx["seed"] + 2)
+    shapes = [tuple(Xp.shape)] + NLL_GRAD_EDGE_SHAPES
+    cases = []
+    for M, N, D in shapes:
+        if (M, N, D) == shapes[0]:
+            d2u = diff2_stack(Xp)
+            C, Kmat = cov_from_cache(lt0, d2u)
+            inner = inner_from_cov(C, yp)
+            del C
+            theta = torch.exp(lt0)
+            params = torch.cat([1 / theta[:, :D] ** 2,
+                                theta[:, D:D + 1] ** 2], 1).contiguous()
+        else:
+            d2u = diff2_stack(2 * torch.rand(M, N, D, generator=gen,
+                                             device=dev))
+            inner = torch.randn(M, N, N, generator=gen, device=dev)
+            inner = (inner + inner.mT) / 2
+            ls = 0.3 + torch.rand(M, D, generator=gen, device=dev)
+            sf2 = 0.5 + torch.rand(M, 1, generator=gen, device=dev)
+            params = torch.cat([1 / ls ** 2, sf2], 1)
+        got = G.nll_grad(d2u, inner, params)
+        again = G.nll_grad(d2u, inner, params)
+        want = G.nll_grad_plain(d2u, inner, params)
+        scale = G.nll_grad_plain(d2u, inner.abs(), params)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs()
+        case = {"M": M, "N": N, "D": D,
+                "max_rel_err": float((err / scale.double()
+                                      .clamp_min(1e-30)).max()),
+                "max_abs_err": float(err.max()),
+                "bitwise_repeatable": bool(torch.equal(got, again))}
+        if not (bool((err <= REL_TOL * scale.double()).all())
+                and case["bitwise_repeatable"]):
+            raise AssertionError(f"nll_grad disagrees with its plain "
+                                 f"version or is not repeatable at {case}")
+        if (M, N, D) == shapes[0]:
+            # library yardstick: no single PyTorch call computes these
+            # sums, so the composition that reuses the K the iteration
+            # already built (einsum of inner * K against d2u) is timed
+            case["ms"] = cuda_ms(lambda: G.nll_grad(d2u, inner, params), 50)
+            case["plain_ms"] = cuda_ms(
+                lambda: G.nll_grad_plain(d2u, inner, params), 5)
+            case["composed_library_ms"] = cuda_ms(
+                lambda: G.nll_grad_plain(d2u, inner, params, Kmat), 5)
+            case["bound_ms"], case["bound_by"] = nll_grad_bound_ms(
+                M, N, D, sms)
+            ctx["nll_grad"] = case
+            del Kmat
+        cases.append(case)
+        del d2u, inner
+    torch.cuda.empty_cache()
+    return cases
 
 
 def phase_serve(ctx):
     import torch
-    from repro_torch.core.gp import pack, stripe_partition
+    from repro_torch.core.gp import pack
     from repro_torch.core.prediction import PredictionEngine
     from repro_torch.core.prediction.local import local_moments_cached
-    from repro_torch.data import gp_sample_field, random_inputs
     from repro_torch.fleet import FleetConfig, GPFleet
+    from repro_torch.kernels import nll_grad as G
     from repro_torch.kernels import rbf_matvec as K
-    dev = torch.device("cuda")
-    gen = torch.Generator(dev).manual_seed(ctx["seed"])
+    dev = torch.device(DEVICE)
     lt = pack(*TRUE_THETA, dtype=torch.float32, device=dev)
     n_query = N_BATCHES * BATCH + BIG
-    # training inputs and held-out queries come from ONE field draw (RFF
-    # above 4,096 points), so the queries' noise-free values are known
-    X = random_inputs(gen, N_TRAIN + n_query, dtype=torch.float32)
-    f, y = gp_sample_field(gen, X, lt)
-    Xp, yp = stripe_partition(X[:N_TRAIN], y[:N_TRAIN], 4)
-    Xq, fq = X[N_TRAIN:], f[N_TRAIN:]
+    Xp, yp, Xq, fq = paper_data(ctx)
     cfg = FleetConfig(stream_mean=True)
     assert (cfg.num_agents, cfg.graph, cfg.dac_iters, cfg.chunk,
             cfg.method) == (4, "path", 200, 256, "rbcm"), cfg
@@ -187,7 +367,7 @@ def phase_serve(ctx):
     torch.cuda.reset_peak_memory_stats(dev)
 
     t0 = time.perf_counter()
-    fleet = GPFleet(cfg, device="cuda").fit(Xp, yp, log_theta0=lt,
+    fleet = GPFleet(cfg, device=DEVICE).fit(Xp, yp, log_theta0=lt,
                                             train=False)
     torch.cuda.synchronize()
     fit_ms = 1e3 * (time.perf_counter() - t0)
@@ -196,8 +376,9 @@ def phase_serve(ctx):
     fleet.predict(Xq[:BATCH])                       # warm-up
     torch.cuda.synchronize()
 
-    # the main path: counts reset just before, read just after
+    # the serving path: counts reset just before, read just after
     K.reset_launches()
+    G.reset_launches()
     batch_ms, means, variances = [], [], []
     t_all = time.perf_counter()
     for i in range(N_BATCHES):
@@ -213,6 +394,9 @@ def phase_serve(ctx):
     big_ms = 1e3 * (time.perf_counter() - t0)
     total_s = time.perf_counter() - t_all
     launches = K.launches
+    if G.launches:
+        raise AssertionError(f"serving launched nll_grad {G.launches} "
+                             f"times")
     peak = torch.cuda.max_memory_allocated(dev)
     means.append(m)
     variances.append(v)
@@ -238,7 +422,7 @@ def phase_serve(ctx):
     # sum_i |w_i| sum_j |k_ij alpha_ij|
     dense = PredictionEngine(fleet.fitted, fleet.A, chunk=cfg.chunk,
                              dac_iters=cfg.dac_iters, stream_mean=False,
-                             device="cuda")
+                             device=DEVICE)
     ft = fleet.fitted
     ls, sf = torch.exp(ft.log_theta[:-2]), torch.exp(ft.log_theta[-2])
     sf2 = (sf ** 2).reshape(1)
@@ -259,7 +443,7 @@ def phase_serve(ctx):
     if not (agent_err <= REL_TOL and mean_err <= REL_TOL):
         raise AssertionError(f"streamed vs dense means: per-agent "
                              f"{agent_err}, rBCM {mean_err} > {REL_TOL}")
-    ctx["launches"] = {"rbf_matvec": launches}
+    ctx["launches"]["rbf_matvec"] = launches
     ctx["fleet"], ctx["queries"] = fleet, Xq
     return {"n_train": N_TRAIN, "agents": cfg.num_agents,
             "per_agent": int(Xp.shape[1]), "dac_iters": cfg.dac_iters,
@@ -274,20 +458,178 @@ def phase_serve(ctx):
             "dac_residual_4096": float(info["dac_residual"])}
 
 
-def phase_profile(ctx):
-    """Device time by kernel over one served 256-query batch, and the
-    device's busy share of the batch's wall time (one stream: kernels do
-    not overlap)."""
+def phase_train(ctx):
+    import torch
+    from repro_torch.core.consensus import path_graph
+    from repro_torch.core.gp import inner_from_cov, nll, pack
+    from repro_torch.core.gp.nll import cholesky
+    from repro_torch.core.training import (build_training_cache,
+                                           cov_from_cache, train_dec_apx_gp)
+    from repro_torch.fleet import FleetConfig, GPFleet
+    from repro_torch.kernels import nll_grad as G
+    from repro_torch.kernels import rbf_matvec as K
+    dev = torch.device(DEVICE)
+    Xp, yp, Xq, fq = paper_data(ctx)
+    Xq, fq = Xq[:BIG], fq[:BIG]
+    cfg = FleetConfig(stream_mean=True, kappa=TRAIN_KAPPA)
+    assert (cfg.trainer, cfg.theta0, cfg.rho, cfg.admm_iters,
+            cfg.num_agents, cfg.graph) == ("dec-apx", (2.0, 0.5, 1.0, 1.0),
+                                           500.0, 100, 4, "path"), cfg
+    th0 = cfg.theta0
+    lt0 = pack(list(th0[:-2]), th0[-2], th0[-1], dtype=torch.float32,
+               device=dev)
+    nll0 = float(nll(lt0, Xp, yp).sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the training path: counts reset just before, read just after
+    G.reset_launches()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    fleet = GPFleet(cfg, device=DEVICE).fit(Xp, yp, train=True)
+    torch.cuda.synchronize()
+    fit_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mean, var, _ = fleet.predict(Xq)
+    torch.cuda.synchronize()
+    predict_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {"nll_grad": G.launches, "rbf_matvec": K.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    if launches["nll_grad"] != cfg.admm_iters:
+        raise AssertionError(f"nll_grad launched {launches['nll_grad']} "
+                             f"times in {cfg.admm_iters} ADMM iterations")
+    tiles = -(-BIG // cfg.chunk)
+    if launches["rbf_matvec"] != tiles:
+        raise AssertionError(f"rbf_matvec launched {launches['rbf_matvec']}"
+                             f" times for {tiles} query tiles")
+    lt = fleet.log_theta
+    if not (bool(torch.isfinite(fleet.thetas).all())
+            and bool(torch.isfinite(lt).all())):
+        raise AssertionError(f"trained theta is not finite: {fleet.thetas}")
+    nll_trained = float(nll(lt, Xp, yp).sum())
+    if not nll_trained < nll0:
+        raise AssertionError(f"sum of NLL did not fall: {nll0} at theta0, "
+                             f"{nll_trained} trained")
+    if mean.shape != (BIG,) or not bool(torch.isfinite(mean).all()) \
+            or not bool((var > 0).all()):
+        raise AssertionError("served moments are not finite and positive "
+                             "of the expected shape")
+    rmse = float(torch.sqrt(((mean - fq) ** 2).mean()))
+    if not rmse < RMSE_LIMIT:
+        raise AssertionError(f"RMSE {rmse} against the noise-free field "
+                             f"is not below {RMSE_LIMIT}")
+    ctx["launches"]["nll_grad"] = launches["nll_grad"]
+    ctx["trained_theta"] = lt
+
+    # CHECK_ITERS iterations with the kernel against the same loop with the
+    # plain version swapped in through the grad_fn hook: in float64, then in
+    # float32 (the kernel path timed, cache build apart); see THETA_TOL
+    A = path_graph(cfg.num_agents)
+    kw = dict(rho=cfg.rho, kappa=cfg.kappa, iters=CHECK_ITERS)
+    X64, y64, lt64 = Xp.double(), yp.double(), lt0.double()
+    th_kernel64, _ = train_dec_apx_gp(lt64, X64, y64, A, **kw)
+    th_plain64, _ = train_dec_apx_gp(lt64, X64, y64, A,
+                                     grad_fn=plain_local_grad, **kw)
+    del X64, y64
+    kernel_vs_plain = float((th_kernel64 - th_plain64).abs().max())
+    if not kernel_vs_plain <= THETA_TOL:
+        raise AssertionError(f"after {CHECK_ITERS} float64 iterations the "
+                             f"kernel path's log theta is {kernel_vs_plain} "
+                             f"from the plain path's (> {THETA_TOL})")
+    t0 = time.perf_counter()
+    build_training_cache(Xp, yp)
+    torch.cuda.synchronize()
+    cache_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    th_kernel, _ = train_dec_apx_gp(lt0, Xp, yp, A, **kw)
+    torch.cuda.synchronize()
+    iter_ms = (1e3 * (time.perf_counter() - t0) - cache_ms) / CHECK_ITERS
+    th_plain, _ = train_dec_apx_gp(lt0, Xp, yp, A, grad_fn=plain_local_grad,
+                                   **kw)
+    kernel_vs_plain32 = float((th_kernel - th_plain).abs().max())
+    f32_error = float((th_plain.double() - th_plain64).abs().max())
+    if not kernel_vs_plain32 <= f32_error:
+        raise AssertionError(f"after {CHECK_ITERS} float32 iterations the "
+                             f"kernel path's log theta is {kernel_vs_plain32}"
+                             f" from the plain path's, more than float32's "
+                             f"own error ({f32_error})")
+
+    # the paper's kappa at this size, in float64 with the plain version:
+    # reported, not gated (see TRAIN_KAPPA)
+    _, paper = train_dec_apx_gp(lt0.double(), Xp.double(), yp.double(), A,
+                                rho=cfg.rho, kappa=FleetConfig().kappa,
+                                iters=PAPER_KAPPA_ITERS,
+                                grad_fn=plain_local_grad)
+    paper_res = paper["residuals"]
+
+    # the three library routes to C^-1 at theta0, one call each after a
+    # warm-up (inner_from_cov takes the triangular solve + product)
+    C, _ = cov_from_cache(lt0.expand(cfg.num_agents, -1),
+                          build_training_cache(Xp, yp).d2u)
+    L = cholesky(C)
+    eye = torch.eye(L.shape[-1], device=dev)
+
+    def trsm_matmul():
+        Li = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+        return Li.mT @ Li
+    inverse_ms = {
+        "solve_triangular_matmul": cuda_ms(trsm_matmul, 1, warmup=1),
+        "cholesky_solve": cuda_ms(lambda: torch.cholesky_solve(eye, L), 1,
+                                  warmup=1),
+        "cholesky_inverse": cuda_ms(lambda: torch.cholesky_inverse(L), 1,
+                                    warmup=1),
+        "cholesky": cuda_ms(lambda: torch.linalg.cholesky_ex(C), 1,
+                            warmup=1),
+        "inner_from_cov": cuda_ms(lambda: inner_from_cov(C, yp), 1,
+                                  warmup=1)}
+    del C, L
+
+    true_lt = pack(*TRUE_THETA, dtype=torch.float32, device=dev)
+    return {"n_train": N_TRAIN, "agents": cfg.num_agents,
+            "per_agent": int(Xp.shape[1]), "trainer": cfg.trainer,
+            "admm_iters": cfg.admm_iters, "rho": cfg.rho,
+            "kappa": cfg.kappa, "dtype": "float32", "queries": BIG,
+            "fit_ms": fit_ms, "ms_per_admm_iteration": iter_ms,
+            "training_cache_ms": cache_ms,
+            "nll_grad_ms_share_of_iteration":
+                ctx["nll_grad"]["ms"] / iter_ms,
+            "predict_4096_ms": predict_ms, "peak_memory_bytes": peak,
+            "nll_grad_launches": launches["nll_grad"],
+            "rbf_matvec_launches": launches["rbf_matvec"],
+            "theta0": list(th0), "trained_theta": torch.exp(lt).tolist(),
+            "trained_thetas_per_agent": torch.exp(fleet.thetas).tolist(),
+            "true_theta": torch.exp(true_lt).tolist(),
+            "max_abs_log_theta_from_true": float((lt - true_lt).abs().max()),
+            "sum_nll_theta0": nll0, "sum_nll_trained": nll_trained,
+            "final_residual": float(fleet.train_info["residuals"][-1]),
+            "rmse_vs_field": rmse,
+            "check_iters": CHECK_ITERS, "theta_tol": THETA_TOL,
+            "max_abs_log_theta_kernel_vs_plain_f64": kernel_vs_plain,
+            "max_abs_log_theta_kernel_vs_plain_f32": kernel_vs_plain32,
+            "max_abs_log_theta_f32_kernel_vs_f64_plain":
+                float((th_kernel.double() - th_plain64).abs().max()),
+            "max_abs_log_theta_f32_plain_vs_f64_plain": f32_error,
+            "inverse_route_ms": inverse_ms,
+            "paper_kappa": FleetConfig().kappa,
+            "paper_kappa_residuals": paper_res.tolist(),
+            "trained_kappa_residuals_last": fleet.train_info["residuals"]
+            [-PAPER_KAPPA_ITERS:].tolist()}
+
+
+def _profiled(fn, port_kernel):
+    """Device time by kernel over one call of `fn` (after a warm-up), the
+    port kernel's device time and launches, and the device's busy share
+    of the call's wall time (one stream: kernels do not overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fleet, Xb = ctx["fleet"], ctx["queries"][:BATCH]
-    fleet.predict(Xb)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fleet.predict(Xb)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_kernel = {}
@@ -299,22 +641,39 @@ def phase_profile(ctx):
         raise RuntimeError("the profiler recorded no device activity")
     busy_us = sum(us for us, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
-    port = [(us, n) for k, (us, n) in by_kernel.items() if "rbf_matvec" in k]
-    return {"batch": BATCH, "wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy_us / 1e3,
-            "rbf_matvec_device_ms": sum(us for us, _ in port) / 1e3,
-            "rbf_matvec_device_launches": sum(n for _, n in port),
+    port = [(us, n) for k, (us, n) in by_kernel.items() if port_kernel in k]
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            f"{port_kernel}_device_ms": sum(us for us, _ in port) / 1e3,
+            f"{port_kernel}_device_launches": sum(n for _, n in port),
             "device_idle_share": 1.0 - busy_us / wall_us,
             "kernels_launched": sum(n for _, n in by_kernel.values()),
             "top_kernels": [{"name": k[:120], "ms": us / 1e3, "count": n}
                             for k, (us, n) in top]}
 
 
+def phase_profile(ctx):
+    """One served 256-query batch and one DEC-apx-GP iteration of the
+    training path (from the trained theta), each traced alone."""
+    from repro_torch.core.training import train_dec_apx_gp
+    fleet, Xb = ctx["fleet"], ctx["queries"][:BATCH]
+    Xp, yp, _, _ = paper_data(ctx)
+    cfg = fleet.config
+    return {"batch": BATCH,
+            "serve_batch": _profiled(lambda: fleet.predict(Xb),
+                                     "rbf_matvec"),
+            "admm_iteration": _profiled(
+                lambda: train_dec_apx_gp(ctx["trained_theta"], Xp, yp,
+                                         fleet.A, rho=cfg.rho,
+                                         kappa=cfg.kappa, iters=1),
+                "nll_grad")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one served batch with torch.profiler")
+                    help="also trace one served batch and one ADMM "
+                         "iteration with torch.profiler")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -329,10 +688,10 @@ def main(argv=None) -> int:
         return 1
 
     card = card_line()
-    ctx = {"seed": args.seed}
+    ctx = {"seed": args.seed, "launches": {}}
     failed = []
     phases = [("build", phase_build), ("kernels", phase_kernels),
-              ("serve", phase_serve)]
+              ("serve", phase_serve), ("train", phase_train)]
     if args.profile:
         phases.append(("profile", phase_profile))
     for name, fn in phases:
@@ -347,15 +706,18 @@ def main(argv=None) -> int:
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
-    k = ctx["rbf_matvec"]
-    emit({"kernels": [{
-        "name": "rbf_matvec", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rbf_matvec.cu",
-        "replaces": "src/repro/kernels/rbf_matvec.py:46",
-        "launches": ctx["launches"]["rbf_matvec"],
-        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]})
+    rows = []
+    for name, replaces in (("rbf_matvec", "src/repro/kernels/rbf_matvec.py:46"),
+                           ("nll_grad", "src/repro/kernels/nll_grad.py:73")):
+        k = ctx[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": ctx["launches"][name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None})
+    emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,17 @@
 """GPFleet: the agent-facing facade over the fleet lifecycle.
 
     cfg = FleetConfig(stream_mean=True)
-    fleet = GPFleet(cfg).fit(Xp, yp, train=False)   # factor caching
-    mean, var, info = fleet.predict(Xs)             # query-tiled serving
+    fleet = GPFleet(cfg).fit(Xp, yp)        # train (dec-apx), cache factors
+    mean, var, info = fleet.predict(Xs)     # query-tiled serving
 
-Counterpart of `repro.fleet.fleet.GPFleet` for the replicated serving
-path: `fit(train=False)` serves from known hyperparameters (config.theta0
-or `log_theta0`), and `predict` dispatches to the PredictionEngine. The
+Counterpart of `repro.fleet.fleet.GPFleet` for the replicated path:
+`fit` trains the hyperparameters with the configured trainer (TRAINERS)
+and caches the factors at the trained theta, or with `train=False` serves
+known hyperparameters; `predict` dispatches to the PredictionEngine. The
 fleet runs on `device` (default: cuda; raises when no card is present and
-the caller did not pass device="cpu"). Training, persistence, online
-experts and the sharded engine are not ported yet (ROADMAP queue A).
+the caller did not pass device="cpu"). Persistence, training traces,
+online experts and the sharded engine are not ported yet (ROADMAP queue
+A).
 """
 from __future__ import annotations
 
@@ -21,7 +23,15 @@ from ..core.gp import pack
 from ..core.prediction import FittedExperts, PredictionEngine, fit_experts
 from ..device import resolve_device
 from .config import FleetConfig
-from .registry import TRAINING_ITEM, get_method, validate_config
+from .registry import get_method, get_trainer, validate_config
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
+    """A tensor moved to `device` and `dtype`, or a copy of an array (the
+    reference's results arrive as read-only numpy arrays)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.tensor(x, dtype=dtype, device=device)
 
 
 def _build_graph(cfg: FleetConfig) -> torch.Tensor:
@@ -49,6 +59,8 @@ class GPFleet:
             raise ValueError(f"adjacency for {self.A.shape[0]} agents vs "
                              f"config.num_agents={cfg.num_agents}")
         self.log_theta = None          # served hyperparameters (K,)
+        self.thetas = None             # per-agent hyperparameters (M, K)
+        self.train_info = {}           # the trainer's info dict
         self.fitted: FittedExperts | None = None
         self._engine: PredictionEngine | None = None
 
@@ -70,19 +82,28 @@ class GPFleet:
                 device=self.device)
         return self._engine
 
-    def fit(self, Xp, yp, *, log_theta0=None,
-            train: bool = True) -> "GPFleet":
-        """Cache the serving factors of the partitioned data. Returns self.
+    def fit(self, Xp, yp, *, log_theta0=None, thetas=None, grad_fn=None,
+            train: bool = True, trace=None) -> "GPFleet":
+        """Train the hyperparameters (trainer registry) and cache the
+        serving factors. Returns self.
 
         Xp (M, Ni, D), yp (M, Ni) as tensors or numpy arrays; they move to
-        the fleet's device and keep their dtype. `train=False` serves from
-        `log_theta0` (default: config.theta0) — the "true hyperparameters
-        known" scenario. Training (`train=True`) is not ported yet.
+        the fleet's device and keep their dtype. Training starts every agent
+        at `log_theta0` (default: config.theta0) and runs on the fleet's
+        device; `grad_fn` is the trainers' local-gradient hook
+        (core.training.make_local_grad). The served theta is the trainer's
+        (the agents' mean for the decentralized ones).
+
+        `train=False` serves `log_theta0` as it is: the "true
+        hyperparameters known" scenario, or hyperparameters trained
+        elsewhere (the reference's `log_theta` and per-agent `thetas`, as
+        numpy arrays; `thetas` is read only here). `trace` (the
+        reference's TraceRecorder hook) is not yet ported.
         """
-        if train:
+        if trace is not None:
             raise NotImplementedError(
-                f"training is not yet ported to repro_torch ({TRAINING_ITEM}"
-                f"); serve known hyperparameters with fit(..., train=False)")
+                "fit(trace=...) is not yet ported to repro_torch (ROADMAP "
+                "queue A item 4, obs)")
         cfg = self.config
         Xp = torch.as_tensor(Xp, device=self.device)
         yp = torch.as_tensor(yp, device=self.device)
@@ -95,13 +116,21 @@ class GPFleet:
             raise ValueError(f"data input_dim {Xp.shape[-1]} vs config."
                              f"input_dim={cfg.input_dim}")
         if log_theta0 is not None:
-            lt = torch.as_tensor(log_theta0, dtype=Xp.dtype,
-                                 device=self.device)
+            lt0 = _tensor(log_theta0, Xp.dtype, self.device)
         else:
-            lt = pack(list(cfg.theta0[:-2]), cfg.theta0[-2], cfg.theta0[-1],
-                      dtype=Xp.dtype, device=self.device)
-        self.log_theta = lt
-        self.fitted = fit_experts(lt, Xp, yp, jitter=cfg.jitter)
+            lt0 = pack(list(cfg.theta0[:-2]), cfg.theta0[-2],
+                       cfg.theta0[-1], dtype=Xp.dtype, device=self.device)
+        if train:
+            spec = get_trainer(cfg.trainer)
+            self.log_theta, self.thetas, self.train_info = spec.run(
+                cfg, lt0, Xp, yp, self.A, grad_fn=grad_fn)
+        else:
+            self.log_theta = lt0
+            self.thetas = (lt0.expand(cfg.num_agents, lt0.shape[0])
+                           if thetas is None
+                           else _tensor(thetas, Xp.dtype, self.device))
+            self.train_info = {}
+        self.fitted = fit_experts(self.log_theta, Xp, yp, jitter=cfg.jitter)
         self._engine = None
         return self
 

@@ -1,14 +1,99 @@
-"""The prediction methods and trainer names the port knows.
+"""The trainers and prediction methods the port knows.
 
-Counterpart of `repro.fleet.registry`. `METHODS` holds the methods this
-slice of the port serves; `validate_config` accepts every name the
-reference registers but rejects, with a "not yet ported" error that names
-the ROADMAP item, the methods and switches whose subsystems the port does
-not have yet. No trainer is ported: `GPFleet.fit(train=True)` raises.
+Counterpart of `repro.fleet.registry`. `TRAINERS` and `METHODS` hold what
+this slice of the port runs; every name the reference registers but the
+port does not have yet is rejected with a "not yet ported" error that
+names its ROADMAP item (`get_trainer`, `get_method`, `validate_config`).
+
+  TRAINERS — the ported training loops, each behind a uniform adapter
+  `spec.run(cfg, log_theta0, Xp, yp, A, grad_fn=None)
+      -> (log_theta (K,), thetas (M, K), info)`
+  that forwards the FleetConfig's ADMM parameters to the loop unchanged,
+  as the reference's adapters do (their `diag` comes with the training
+  trace, ROADMAP queue A item 4).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
+
+from ..core.training import (train_apx_gp, train_c_gp, train_dec_apx_gp,
+                             train_dec_c_gp, train_fact_gp)
+
+
+class TrainerSpec(NamedTuple):
+    """One registered training loop (`run`: see the module docstring)."""
+    name: str
+    run: Callable
+    paper: str
+
+
+def _run_fact(cfg, lt0, Xp, yp, A, grad_fn=None):
+    lt, vals = train_fact_gp(lt0, Xp, yp, steps=cfg.fact_steps,
+                             lr=cfg.fact_lr)
+    return lt, lt.expand(Xp.shape[0], lt.shape[0]), {"nll": vals}
+
+
+def _run_c(cfg, lt0, Xp, yp, A, grad_fn=None):
+    return train_c_gp(lt0, Xp, yp, rho=cfg.rho, iters=cfg.admm_iters,
+                      nested_iters=cfg.nested_iters, nested_lr=cfg.nested_lr,
+                      grad_fn=grad_fn)
+
+
+def _run_apx(cfg, lt0, Xp, yp, A, grad_fn=None):
+    return train_apx_gp(lt0, Xp, yp, rho=cfg.rho, L=cfg.lipschitz,
+                        iters=cfg.admm_iters, grad_fn=grad_fn)
+
+
+def _run_dec_c(cfg, lt0, Xp, yp, A, grad_fn=None):
+    thetas, info = train_dec_c_gp(lt0, Xp, yp, A, rho=cfg.rho,
+                                  iters=cfg.admm_iters,
+                                  nested_iters=cfg.nested_iters,
+                                  nested_lr=cfg.nested_lr, grad_fn=grad_fn)
+    return thetas.mean(0), thetas, info
+
+
+def _run_dec_apx(cfg, lt0, Xp, yp, A, grad_fn=None):
+    thetas, info = train_dec_apx_gp(lt0, Xp, yp, A, rho=cfg.rho,
+                                    kappa=cfg.kappa, iters=cfg.admm_iters,
+                                    grad_fn=grad_fn)
+    return thetas.mean(0), thetas, info
+
+
+TRAINERS: dict[str, TrainerSpec] = {s.name: s for s in (
+    TrainerSpec("fact", _run_fact, "§2.3.1 (FACT-GP baseline)"),
+    TrainerSpec("c", _run_c, "eq. 24"),
+    TrainerSpec("apx", _run_apx, "eq. 26"),
+    TrainerSpec("dec-c", _run_dec_c, "eq. 30"),
+    TrainerSpec("dec-apx", _run_dec_apx, "eq. 34 (Thm. 1)"),
+)}
+
+# trainers the reference registers, with the ROADMAP queue A item that
+# ports them
+_LATER_TRAINERS = {
+    "gapx": "ROADMAP queue A item 3 (the grBCM communication dataset)",
+    "dec-gapx": "ROADMAP queue A item 3 (the grBCM communication dataset)",
+    "dec-apx-sharded": "ROADMAP queue A item 7 (multi-GPU)",
+    "fact-sparse": "ROADMAP queue A item 6 (sparse experts)",
+    "dec-apx-sparse": "ROADMAP queue A item 6 (sparse experts)",
+}
+
+
+def trainer_names() -> tuple[str, ...]:
+    return tuple(TRAINERS)
+
+
+def get_trainer(name: str) -> TrainerSpec:
+    """The ported trainer `name`; a trainer the reference has but the port
+    does not yet raises ValueError, an unknown one KeyError."""
+    spec = TRAINERS.get(name)
+    if spec is not None:
+        return spec
+    if name in _LATER_TRAINERS:
+        raise ValueError(f"trainer {name!r} is not yet ported to "
+                         f"repro_torch ({_LATER_TRAINERS[name]}); ported "
+                         f"trainers: {sorted(TRAINERS)}")
+    raise KeyError(f"unknown trainer {name!r}; registered trainers: "
+                   f"{sorted(TRAINERS)}")
 
 
 class MethodSpec(NamedTuple):
@@ -24,16 +109,13 @@ METHODS: dict[str, MethodSpec] = {s.name: s for s in (
     MethodSpec("rbcm", "Alg. 8, eq. 14-15"),
 )}
 
-# methods and trainers the reference registers, with the ROADMAP queue A
-# item that ports them
+# methods the reference registers, with the ROADMAP queue A item that
+# ports them
 _LATER_METHODS = {name: "ROADMAP queue A item 3 (CBNN, grBCM, NPAE)"
                   for name in ("grbcm", "npae", "npae_star", "nn_poe",
                                "nn_gpoe", "nn_bcm", "nn_rbcm", "nn_grbcm",
                                "nn_npae")}
 _LATER_METHODS["npae_sparse"] = "ROADMAP queue A item 6 (sparse experts)"
-TRAINER_NAMES = ("fact", "c", "apx", "gapx", "dec-c", "dec-apx", "dec-gapx",
-                 "dec-apx-sharded", "fact-sparse", "dec-apx-sparse")
-TRAINING_ITEM = "ROADMAP queue A item 2 (training)"
 
 # FleetConfig switches whose subsystems are not ported, by ROADMAP item
 _LATER_SWITCHES = (
@@ -67,10 +149,13 @@ def get_method(name: str) -> MethodSpec:
 
 def validate_config(cfg) -> None:
     """Reject a FleetConfig that names an unknown trainer or method, or
-    asks for a method or switch that is not yet ported."""
-    if cfg.trainer not in TRAINER_NAMES:
+    asks for a method or switch that is not yet ported. A trainer the
+    reference has but the port does not yet is rejected when a fit trains
+    (`get_trainer`), so such a config still serves known
+    hyperparameters."""
+    if cfg.trainer not in TRAINERS and cfg.trainer not in _LATER_TRAINERS:
         raise KeyError(f"unknown trainer {cfg.trainer!r}; registered "
-                       f"trainers: {sorted(TRAINER_NAMES)}")
+                       f"trainers: {sorted(TRAINERS)}")
     get_method(cfg.method)
     for field, item in _LATER_SWITCHES:
         if getattr(cfg, field) not in (False, None):

@@ -3,6 +3,8 @@
   ref.py          plain PyTorch oracles (counterpart of repro.kernels.ref)
   rbf_matvec.py   launch wrapper of csrc/rbf_matvec.cu (replaces the Pallas
                   kernel repro/kernels/rbf_matvec.py:rbf_matvec_pallas)
+  nll_grad.py     launch wrapper of csrc/nll_grad.cu (replaces the Pallas
+                  kernel repro/kernels/nll_grad.py:nll_grad_pallas)
   ops.py          public ops with the reference's signatures
   _build.py       nvcc build of csrc/*.cu and the ctypes loader
 

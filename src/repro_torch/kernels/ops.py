@@ -1,14 +1,16 @@
 """Public kernel ops with the reference's signatures (repro.kernels.ops).
 
 The CUDA path computes in float32 like the reference's Pallas path
-(repro/kernels/ops.py: rbf_matvec casts its operands to float32); the CPU
-path keeps the input dtype like the reference's jnp path. Callers cast the
-result back to their query dtype (core.prediction.local.stream_means).
+(repro/kernels/ops.py: rbf_matvec and nll_grad_fused cast their operands
+to float32); the CPU path keeps the input dtype like the reference's jnp
+path. rbf_matvec's callers cast the result back to their query dtype
+(core.prediction.local.stream_means); nll_grad_fused returns d2u's dtype.
 """
 from __future__ import annotations
 
 import torch
 
+from . import nll_grad as _nll_grad
 from . import rbf_matvec as _rbf_matvec
 
 
@@ -35,3 +37,37 @@ def rbf_matvec(x1, x2, v, lengthscales, sigma_f):
     return rbf_matvec_agents(x1, x2[None], v[None], lengthscales,
                              torch.as_tensor(sigma_f, dtype=x1.dtype,
                                              device=x1.device))[0]
+
+
+def nll_grad_fused_agents(log_theta, d2u, inner, K=None):
+    """Every agent's dNLL/dlog_theta in one kernel call -> (M, D+2).
+
+    log_theta (M, D+2), d2u (M, D, N, N) the once-per-fit unscaled diff^2
+    stacks, inner (M, N, N) = C^-1 - alpha alpha^T of this iteration (paper
+    eq. 4, trace identity). The kernel returns the sums [sum W d2u[d],
+    sum W, tr(inner)]; the log-theta chain rule is applied here in d2u's
+    dtype: sums[:D] / l^2, sums[D], sigma_eps^2 sums[D+1]. On the card the
+    operands are cast to float32 and `K` is ignored, as the reference's
+    Pallas path does; on the CPU the plain version reuses `K`."""
+    D = d2u.shape[-3]
+    theta = torch.exp(log_theta)
+    ls, sigma_f, sigma_eps = theta[..., :D], theta[..., D], theta[..., D + 1]
+    params = torch.cat([1.0 / ls**2, (sigma_f**2)[..., None]], -1)
+    if d2u.device.type != "cpu":
+        d2u_k, inner, params = (t.to(torch.float32).contiguous()
+                                for t in (d2u, inner, params))
+        sums = _nll_grad.nll_grad(d2u_k, inner, params)
+    else:
+        sums = _nll_grad.nll_grad(d2u, inner, params, K=K)
+    sums = sums.to(d2u.dtype)
+    return torch.cat([sums[..., :D] / ls**2, sums[..., D:D + 1],
+                      sigma_eps[..., None]**2 * sums[..., D + 1:]], -1)
+
+
+def nll_grad_fused(log_theta, d2u, inner, K=None):
+    """Fused trace-identity NLL gradient of one agent -> (D+2,).
+
+    Signature of the reference's `ops.nll_grad_fused`: log_theta (D+2,),
+    d2u (D, N, N), inner (N, N), K (N, N) or None."""
+    return nll_grad_fused_agents(log_theta[None], d2u[None], inner[None],
+                                 None if K is None else K[None])[0]

@@ -3,11 +3,15 @@
 Counterpart of the default replicated mode of `repro.launch.serve_gp`:
 build synthetic fleet data (a GP field sampled at random inputs, stripe-
 partitioned over the agents), cache the factors at the true
-hyperparameters, coalesce ragged requests into fixed-size micro-batches,
-serve them through `GPFleet.predict` and print the rate.
+hyperparameters — or, with `--train-iters N`, train them first with
+`--trainer` (ADMM started at the true theta, as the reference does) —
+coalesce ragged requests into fixed-size micro-batches, serve them through
+`GPFleet.predict` and print the rate.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_gp --agents 8 \
       --per-agent 128 --method rbcm --requests 64 --batch 256 --chunk 128
+  PYTHONPATH=src python -m repro_torch.launch.serve_gp --device cpu \
+      --trainer dec-apx --train-iters 5 --agents 4 --per-agent 64
 
 It runs on the card unless `--device cpu` is given, in float32 with the
 streamed mean (the hand-written rbf_matvec kernel) unless `--no-stream`.
@@ -23,7 +27,7 @@ import torch
 from ..core.gp import pack, stripe_partition
 from ..data import gp_sample_field, random_inputs
 from ..device import resolve_device
-from ..fleet import FleetConfig, GPFleet, method_names
+from ..fleet import FleetConfig, GPFleet, method_names, trainer_names
 
 _TRUE_THETA = ([1.2, 0.3], 1.3, 0.1)
 
@@ -81,32 +85,44 @@ def main(argv=None):
     ap.add_argument("--chunk", type=int, default=128,
                     help="engine query-tile size")
     ap.add_argument("--dac-iters", type=int, default=100)
+    ap.add_argument("--trainer", default="dec-apx",
+                    choices=sorted(trainer_names()),
+                    help="training loop (fleet registry name)")
     ap.add_argument("--train-iters", type=int, default=0,
-                    help="training rounds; only 0 (serve the true "
-                         "hyperparameters) until training is ported")
+                    help="training rounds (0 = use the true "
+                         "hyperparameters)")
     ap.add_argument("--no-stream", action="store_true",
                     help="disable the streaming rbf_matvec mean path")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    if args.train_iters:
-        ap.error("--train-iters: training is not yet ported to repro_torch "
-                 "(ROADMAP queue A item 2); use 0")
+    if args.train_iters < 0:
+        ap.error("--train-iters must be >= 0")
     base = args.method[4:] if args.method.startswith("cen_") else args.method
     cfg = FleetConfig(num_agents=args.agents, method=base, chunk=args.chunk,
                       dac_iters=args.dac_iters,
-                      stream_mean=not args.no_stream)
+                      stream_mean=not args.no_stream, trainer=args.trainer,
+                      admm_iters=args.train_iters or FleetConfig.admm_iters,
+                      fact_steps=args.train_iters or FleetConfig.fact_steps)
     device = resolve_device(args.device)
     gen = torch.Generator(device).manual_seed(0)
 
     t0 = time.perf_counter()
     Xp, yp = build_data(gen, args.agents, args.per_agent)
+    # the synthetic-fleet launcher always starts from the TRUE theta:
+    # --train-iters 0 serves it directly, N runs the trainer from there
     fleet = GPFleet(cfg, device=device).fit(
-        Xp, yp, log_theta0=pack(*_TRUE_THETA), train=False)
+        Xp, yp, log_theta0=pack(*_TRUE_THETA), train=bool(args.train_iters))
     _sync(device)
+    trained = (f"trained ({args.trainer}, {args.train_iters} rounds) and "
+               if args.train_iters else "")
     print(f"fleet: M={args.agents} agents x Ni={args.per_agent} points "
-          f"(replicated, {device}); fitted in "
+          f"(replicated, {device}); {trained}fitted in "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    if args.train_iters:
+        theta = torch.exp(fleet.log_theta).tolist()
+        print("trained theta (l_1..l_D, sigma_f, sigma_eps): "
+              + ", ".join(f"{t:.4f}" for t in theta))
 
     requests = request_stream(gen, args.requests, args.batch)
     batches, total, slices = micro_batches(requests, args.batch)

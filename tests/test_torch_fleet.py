@@ -92,9 +92,20 @@ def test_fleet_float32_follows_the_inputs(data):
 
 
 def test_fit_with_training_is_not_ported(data):
+    """Training is ported (tests/test_torch_training.py); what is not yet
+    is the trainers that need the grBCM communication dataset, the sharded
+    loop, the sparse trainers and the training trace."""
     Xp, yp, _ = data
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        GPFleet(FleetConfig(), device="cpu").fit(Xp, yp)
+    for trainer, item in (("gapx", "item 3"), ("dec-gapx", "item 3"),
+                          ("dec-apx-sharded", "item 7"),
+                          ("fact-sparse", "item 6"),
+                          ("dec-apx-sparse", "item 6")):
+        fleet = GPFleet(FleetConfig(trainer=trainer), device="cpu")
+        with pytest.raises(ValueError, match=f"not yet ported.*{item}"):
+            fleet.fit(Xp, yp)
+        fleet.fit(Xp, yp, train=False)            # serving known theta works
+    with pytest.raises(NotImplementedError, match="not yet ported.*item 4"):
+        GPFleet(FleetConfig(), device="cpu").fit(Xp, yp, trace=object())
 
 
 def test_fleet_shape_errors(data):
@@ -138,8 +149,23 @@ def test_serve_gp_runs_on_the_cpu(capsys):
 
 
 def test_serve_gp_rejects_training(capsys):
+    """The launcher trains with the ported trainers only, and a positive
+    number of rounds (test_serve_gp_trains_on_the_cpu trains)."""
     with pytest.raises(SystemExit):
-        serve_gp.main(["--device", "cpu", "--train-iters", "5"])
+        serve_gp.main(["--device", "cpu", "--train-iters", "-1"])
+    with pytest.raises(SystemExit):
+        serve_gp.main(["--device", "cpu", "--trainer", "gapx",
+                       "--train-iters", "5"])
+    assert "invalid choice: 'gapx'" in capsys.readouterr().err
+
+
+def test_serve_gp_trains_on_the_cpu(capsys):
+    serve_gp.main(["--device", "cpu", "--trainer", "dec-apx",
+                   "--train-iters", "5", "--agents", "4", "--per-agent",
+                   "32", "--requests", "3", "--batch", "32", "--chunk", "16"])
+    out = capsys.readouterr().out
+    assert "trained (dec-apx, 5 rounds)" in out and "trained theta" in out
+    assert "rbcm: served" in out
 
 
 def test_micro_batches_pad_and_slice():

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the hand-written rbf_matvec kernel against its
-plain version, its dispatch, and the serving path with and without it.
+"""The port on a CUDA card: the hand-written rbf_matvec and nll_grad kernels
+against their plain versions, their dispatch, the serving path with and
+without rbf_matvec, and training through nll_grad.
 
 Every test here is marked `gpu` and skips (in its fixture) without a card.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -9,9 +10,12 @@ This file imports no JAX, so it runs where JAX is not installed:
 import pytest
 import torch
 
-from repro_torch.core.gp import pack
+from repro_torch.core.consensus import path_graph
+from repro_torch.core.gp import diff2_stack, inner_from_cov, pack
 from repro_torch.core.prediction import PredictionEngine
+from repro_torch.core.training import cov_from_cache, train_dec_apx_gp
 from repro_torch.fleet import FleetConfig, GPFleet
+from repro_torch.kernels import nll_grad as G
 from repro_torch.kernels import rbf_matvec as K
 from repro_torch.launch import serve_gp
 
@@ -83,3 +87,91 @@ def test_serve_gp_on_the_card(cuda, capsys):
     serve_gp.main(["--agents", "4", "--per-agent", "256", "--requests", "8",
                    "--batch", "128"])
     assert "rbcm: served" in capsys.readouterr().out
+
+
+def _nll_grad_inputs(dev, M, N, D, seed):
+    """d2u of random inputs, a symmetric `inner` and per-agent params."""
+    g = torch.Generator(dev).manual_seed(seed)
+    d2u = diff2_stack(2 * torch.rand(M, N, D, generator=g, device=dev))
+    inner = torch.randn(M, N, N, generator=g, device=dev)
+    inner = (inner + inner.mT) / 2
+    ls = 0.3 + torch.rand(M, D, generator=g, device=dev)
+    sf2 = 0.5 + torch.rand(M, 1, generator=g, device=dev)
+    return d2u.contiguous(), inner, torch.cat([1 / ls**2, sf2], 1)
+
+
+@pytest.mark.parametrize("M,N,D", [(4, 8100, 2), (4, 8099, 2), (4, 131, 2),
+                                   (4, 1, 2), (4, 500, 1), (3, 257, 3),
+                                   (2, 300, 8), (2, 64, 5), (40, 810, 2)])
+def test_nll_grad_kernel_matches_plain(cuda, M, N, D):
+    """Each component within 1e-5 of the float64 plain version, relative
+    to its sum of absolute terms (sum |W d2u[d]|, sum |W|, sum |diag|),
+    and two calls bitwise equal."""
+    d2u, inner, params = _nll_grad_inputs(cuda, M, N, D, N + D)
+    before = G.launches
+    got = G.nll_grad(d2u, inner, params)
+    again = G.nll_grad(d2u, inner, params)
+    assert G.launches == before + 2
+    assert got.shape == (M, D + 2) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    d2u, inner, params = d2u.double(), inner.double(), params.double()
+    want = G.nll_grad_plain(d2u, inner, params)
+    scale = G.nll_grad_plain(d2u, inner.abs(), params)
+    assert bool(((got.double() - want).abs() <= REL_TOL * scale).all())
+
+
+def test_nll_grad_kernel_raises_on_cuda_float64(cuda):
+    d2u, inner, params = (t.double() for t in
+                          _nll_grad_inputs(cuda, 2, 16, 2, 0))
+    with pytest.raises(TypeError, match="float32"):
+        G.nll_grad(d2u, inner, params)
+
+
+def test_training_launches_nll_grad_once_per_iteration(cuda):
+    """DEC-apx-GP on the card: one kernel launch per ADMM iteration for
+    the whole fleet, and the same thetas (float32 rounding) as the loop
+    with the plain version swapped in through the grad_fn hook."""
+    g = torch.Generator(cuda).manual_seed(1)
+    X = 2 * torch.rand(4 * 300, 2, generator=g, device=cuda)
+    X = X[torch.argsort(X[:, 0])]
+    y = torch.sin(2 * X[:, 0]) * torch.cos(3 * X[:, 1])
+    Xp, yp = X.reshape(4, 300, 2), y.reshape(4, 300)
+    lt0 = pack([2.0, 0.5], 1.0, 1.0, dtype=torch.float32, device=cuda)
+    before = G.launches
+    th, info = train_dec_apx_gp(lt0, Xp, yp, path_graph(4), iters=10)
+    assert G.launches == before + 10
+    assert info["residuals"].shape == (10,)
+
+    def plain_grad(lt, Xi, yi):
+        """The fused gradient with the kernel's plain version on the card."""
+        d2u = diff2_stack(Xi)
+        C, _ = cov_from_cache(lt, d2u)
+        sums = G.nll_grad_plain(d2u, inner_from_cov(C, yi),
+                                torch.cat([torch.exp(-2 * lt[:2]),
+                                           torch.exp(2 * lt[2:3])]))
+        return torch.cat([sums[:2] * torch.exp(-2 * lt[:2]), sums[2:3],
+                          torch.exp(2 * lt[3:]) * sums[3:]])
+    th_plain, _ = train_dec_apx_gp(lt0, Xp, yp, path_graph(4), iters=10,
+                                   grad_fn=plain_grad)
+    assert G.launches == before + 10
+    assert float((th - th_plain).abs().max()) <= 1e-4
+
+
+def test_fleet_trains_on_the_card(cuda):
+    g = torch.Generator(cuda).manual_seed(2)
+    X = 2 * torch.rand(4 * 400, 2, generator=g, device=cuda)
+    X = X[torch.argsort(X[:, 0])]
+    y = torch.sin(2 * X[:, 0]) * torch.cos(3 * X[:, 1])
+    fleet = GPFleet(FleetConfig(admm_iters=20, stream_mean=True)).fit(
+        X.reshape(4, 400, 2), y.reshape(4, 400))
+    assert bool(torch.isfinite(fleet.log_theta).all())
+    assert fleet.thetas.shape == (4, 4)
+    mean, var, _ = fleet.predict(X[:300])
+    assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())
+
+
+def test_serve_gp_trains_on_the_card(cuda, capsys):
+    serve_gp.main(["--agents", "4", "--per-agent", "256", "--requests", "4",
+                   "--batch", "128", "--train-iters", "3"])
+    out = capsys.readouterr().out
+    assert "trained (dec-apx, 3 rounds)" in out and "rbcm: served" in out

@@ -1,7 +1,8 @@
 """Guards on the port (repro_torch) and chip_smoke.py: they import neither
 JAX nor the JAX package, they run on the card unless the caller asks for
-the CPU, and chip_smoke.py refuses to report without a card or without
-the port's sources beside it."""
+the CPU, a tensor off the CPU never reaches a kernel's plain version,
+what is not yet ported says so, and chip_smoke.py refuses to report
+without a card or without the port's sources beside it."""
 import ast
 import shutil
 import subprocess
@@ -16,6 +17,8 @@ from repro_torch import resolve_device
 from repro_torch.core.consensus import path_graph
 from repro_torch.core.prediction import FittedExperts, PredictionEngine
 from repro_torch.fleet import FleetConfig, GPFleet
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import nll_grad as G
 from repro_torch.launch import serve_gp
 
 torch.set_num_threads(2)
@@ -86,3 +89,89 @@ def test_chip_smoke_refuses_without_card_or_sources(tmp_path, alone):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def _meta_nll_grad_inputs(M=3, N=9, D=2):
+    meta = dict(device="meta", dtype=torch.float32)
+    return (torch.empty(M, D + 2, **meta), torch.empty(M, D, N, N, **meta),
+            torch.empty(M, N, N, **meta))
+
+
+def test_nll_grad_plain_never_takes_a_tensor_off_the_cpu(monkeypatch):
+    """Meta tensors stand in for CUDA tensors on a machine without a card:
+    they go to the kernel's launch path (here its checks, which refuse a
+    non-CUDA device), never to the plain version."""
+    def plain(*args, **kw):
+        raise AssertionError("plain version reached from a non-CPU tensor")
+    monkeypatch.setattr(G, "nll_grad_plain", plain)
+    lt, d2u, inner = _meta_nll_grad_inputs()
+    before = G.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.nll_grad_fused_agents(lt, d2u, inner)
+    with pytest.raises(ValueError, match="CUDA device"):
+        G.nll_grad(d2u, inner, torch.empty(3, 3, device="meta"))
+    assert G.launches == before
+
+
+def test_nll_grad_raises_when_the_loader_fails(monkeypatch):
+    def fail(name):
+        raise RuntimeError("nvcc not found")
+
+    def plain(*args, **kw):
+        raise AssertionError("plain version reached from a non-CPU tensor")
+    monkeypatch.setattr(_build, "load_library", fail)
+    monkeypatch.setattr(G, "nll_grad_plain", plain)
+    monkeypatch.setattr(G, "_check", lambda *args: None)
+    G._library.cache_clear()
+    lt, d2u, inner = _meta_nll_grad_inputs()
+    before = G.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ops.nll_grad_fused_agents(lt, d2u, inner)
+    assert G.launches == before
+    G._library.cache_clear()
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("dtype", "float32"), ("contiguous", "contiguous"), ("shape", "want d2u"),
+    ("wide", "D <= 32")])
+def test_nll_grad_kernel_input_checks_raise(bad, match):
+    _, d2u, inner = _meta_nll_grad_inputs()
+    params = torch.empty(3, 3, device="meta")
+    if bad == "dtype":
+        inner = inner.double()
+    elif bad == "contiguous":
+        d2u = torch.empty(3, 9, 9, 2, device="meta").permute(0, 3, 1, 2)
+    elif bad == "shape":
+        params = torch.empty(3, 4, device="meta")
+    elif bad == "wide":
+        _, d2u, inner = _meta_nll_grad_inputs(D=33)
+        params = torch.empty(3, 34, device="meta")
+    with pytest.raises((ValueError, TypeError), match=match):
+        G._check(d2u, inner, params)
+
+
+@pytest.mark.parametrize("trainer,item", [
+    ("gapx", "item 3"), ("dec-gapx", "item 3"), ("dec-apx-sharded", "item 7"),
+    ("fact-sparse", "item 6"), ("dec-apx-sparse", "item 6")])
+def test_unported_trainers_say_not_yet_ported(trainer, item):
+    from repro_torch.fleet import get_trainer
+    with pytest.raises(ValueError, match=f"not yet ported.*{item}"):
+        get_trainer(trainer)
+    with pytest.raises(KeyError, match="unknown trainer"):
+        get_trainer("nope")
+
+
+def test_fit_trace_is_not_yet_ported():
+    Xp, yp = np.zeros((4, 3, 2)), np.zeros((4, 3))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        GPFleet(FleetConfig(), device="cpu").fit(Xp, yp, trace=object())
+
+
+def test_training_defaults_to_the_card(no_card):
+    """The trainers follow their inputs' device; the fleet that runs them
+    defaults to cuda and raises here."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPFleet(FleetConfig(trainer="dec-apx"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_gp.main(["--train-iters", "2", "--agents", "2",
+                       "--per-agent", "8"])

@@ -18,6 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import nll_grad as G
 from repro_torch.kernels import rbf_matvec as K
 
 torch.set_num_threads(2)
@@ -152,7 +153,7 @@ def test_splits_fill_the_card():
     assert K.splits_for(4096, 40, 810, 132) == 1
 
 
-@pytest.mark.parametrize("module", ["rbf_matvec.py", "ops.py"])
+@pytest.mark.parametrize("module", ["rbf_matvec.py", "ops.py", "nll_grad.py"])
 def test_dispatch_has_no_fallback(module):
     """No `try` in the dispatch modules: nothing can catch a kernel failure
     and fall back to the plain version."""
@@ -166,3 +167,18 @@ def test_build_hash_tracks_the_source_and_flags():
     src = (_build.CSRC / "rbf_matvec.cu").read_text()
     assert "rbf_matvec_pallas" in src    # the source names what it replaces
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_nll_grad_build_names_its_tpu_kernel():
+    p = _build.library_path("nll_grad")
+    assert p.parent == _build.BUILD_DIR and p.name.startswith("libnll_grad-")
+    src = (_build.CSRC / "nll_grad.cu").read_text()
+    assert "nll_grad_pallas" in src      # the source names what it replaces
+    assert "atomic" not in src.replace("no atomics", "")
+
+
+def test_nll_grad_blocks_fill_the_card():
+    # the training shape: 16 blocks per SM over 4 agents
+    assert G.blocks_for(4, 8100, 132) == 528
+    assert G.blocks_for(40, 810, 132) == 53
+    assert G.blocks_for(4, 1, 132) == 1            # never more than rows
