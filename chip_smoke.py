@@ -9,9 +9,11 @@ Phases, one JSON line each:
            kernels/csrc/*.cu, all at once) for sm_90a.
   kernels  holds each kernel to its plain PyTorch version on the card, at
            the main paths' shapes and at ragged/edge shapes, checks that
-           two nll_grad calls are bitwise equal, and times each kernel, its
-           plain version and a composed library yardstick with CUDA events
-           beside the kernel's lower bound.
+           two nll_grad calls are bitwise equal, that a zero x leaves a
+           factor bitwise unchanged under cholupdate and that its inactive
+           agents come back untouched, and times each kernel, its plain
+           version and a library yardstick with CUDA events beside the
+           kernel's lower bound.
   serve    the serving path: a paper-scale DEC-rBCM fleet (32,400 points
            from a GP field, M = 4 agents on a path graph, 200 DAC sweeps,
            chunk 256, float32, streamed mean) fitted at the true
@@ -32,10 +34,27 @@ Phases, one JSON line each:
            each float32 trajectory's deviation from float64, and
            the residuals of 20 float64 iterations at the paper's kappa =
            5,000, which does not converge at this size (see TRAIN_KAPPA).
+  online   the streaming path: the same fleet as sliding windows
+           (FleetConfig(online=True, window=8,100), one full window per
+           agent) fitted at the true hyperparameters, then 128 fleet-wide
+           GPFleet.observe rounds of points from the same field (each an
+           eviction through cholupdate, an append and alpha), one
+           256-query rBCM micro-batch served after every 4 rounds, then
+           GPFleet.drift(iters=5) (DEC-apx-GP on the live windows through
+           nll_grad), a join of one agent with 8,100 points and the leave
+           of agent 1 (interior node of the path), and serving again. It
+           checks one cholupdate launch per round, the streamed factors,
+           alpha and served means against a float32 refit and a float64
+           refit of the same windows (see F32_FACTOR), the RMSE against the
+           field, nll_grad launched once per drift iteration, that the
+           engine object and adjacency survive the stream (factors swapped,
+           not rebuilt), and the fleet after join/leave against a fresh
+           fleet on the same windows and graph.
 
-With --profile it then traces one 256-query batch of the serving path and
-one ADMM iteration of the training path with torch.profiler and prints
-device time by kernel and the device's busy share.
+With --profile it then traces one 256-query batch of the serving path,
+one ADMM iteration of the training path, and one observe round and one
+served batch of the streaming fleet with torch.profiler and prints device
+time by kernel and the device's busy share.
 
 Then it prints the kernel table as one JSON object, the card's name and
 power limit as nvidia-smi reports them, and last
@@ -80,6 +99,24 @@ RBF_MATVEC_SHAPES = [(256, 4, 8100, 2), (200, 4, 8100, 2), (131, 4, 8099, 2),
 # paper's largest fleet (M = 40 agents of 810 points)
 NLL_GRAD_EDGE_SHAPES = [(4, 8099, 2), (4, 131, 2), (4, 1, 2), (4, 1013, 1),
                         (3, 777, 3), (2, 555, 8), (40, 810, 2)]
+# cholupdate (M, n) at random factors after the paper-fleet cases
+CHOLUPDATE_EDGE_SHAPES = [(3, 777), (4, 131), (4, 1)]
+# assumed least latency of one column of the rotation chain: a correctly
+# rounded sqrt and a division on the dependent path, each at least a MUFU
+# approximation and a fused multiply-add refinement (about 20 cycles),
+# against 4-cycle FMAs; not a data-sheet figure, so it is only reported
+CHAIN_CYCLES_PER_COLUMN = 40
+WINDOW = 8_100                        # one window per agent at the paper's Ni
+STREAM_ROUNDS = 128                   # fleet-wide observe rounds
+SERVE_EVERY = 4                       # rounds between served micro-batches
+DRIFT_ITERS = 5
+# The streamed factors, alpha and served means are held to a float64 refit
+# of the same windows: each may be at most F32_FACTOR times as far from it
+# as a float32 refit is. A float32 Cholesky of these windows is itself
+# off by about cond(C) * eps (the phase reports both distances), and the
+# stream's 128 rank-1 updates and appends are backward stable, so they may
+# not add more than float32's own error again.
+F32_FACTOR = 2.0
 # DEC-apx-GP's proximal weight in the train phase. The paper's kappa =
 # 5,000 (FleetConfig's default) does not converge at Ni = 8,100, in float32
 # or float64: eq. 34 is a gradient step of 1 / (kappa + 2 rho deg), 1/6,000
@@ -174,22 +211,69 @@ def nll_grad_bound_ms(M: int, N: int, D: int,
 
 def paper_data(ctx):
     """The paper's §6 fleet on the card, made once per run: training
-    inputs and held-out queries from ONE field draw (RFF above 4,096
-    points), so the queries' noise-free values are known. Returns
-    (Xp (4, 8100, 2), yp (4, 8100), Xq (6144, 2), fq (6144,))."""
+    inputs and held-out queries from ONE field draw (random Fourier
+    features, as gp_sample_field draws above 4,096 points, with the same
+    numbers), so the queries' noise-free values are known; the field is
+    kept in ctx for more points. Returns (Xp (4, 8100, 2), yp (4, 8100),
+    Xq (6144, 2), fq (6144,))."""
     if "data" not in ctx:
         import torch
         from repro_torch.core.gp import pack, stripe_partition
-        from repro_torch.data import gp_sample_field, random_inputs
+        from repro_torch.data import random_inputs, rff_field
         dev = torch.device(DEVICE)
         gen = torch.Generator(dev).manual_seed(ctx["seed"])
         lt = pack(*TRUE_THETA, dtype=torch.float32, device=dev)
         X = random_inputs(gen, N_TRAIN + N_BATCHES * BATCH + BIG,
                           dtype=torch.float32)
-        f, y = gp_sample_field(gen, X, lt)
+        field = rff_field(gen, lt, 2, dtype=torch.float32)
+        f = field(X)
+        y = f + torch.exp(lt[-1]) * torch.randn(
+            X.shape[0], generator=gen, dtype=torch.float32, device=dev)
         Xp, yp = stripe_partition(X[:N_TRAIN], y[:N_TRAIN], 4)
         ctx["data"] = (Xp, yp, X[N_TRAIN:], f[N_TRAIN:])
+        ctx["field"] = field
     return ctx["data"]
+
+
+def online_data(ctx):
+    """More points of the paper field for the online phase: per round one
+    observation per agent, uniform in that agent's stripe of the first
+    coordinate, and WINDOW points over the whole square for the joining
+    agent. Returns (xs (R, 4, 2), ys (R, 4), Xj (W, 2), yj (W,))."""
+    import torch
+    from repro_torch.data import random_inputs
+    Xp, _, _, _ = paper_data(ctx)
+    field, dev = ctx["field"], Xp.device
+    sigma_eps = torch.tensor(TRUE_THETA[2], device=dev).log().exp()
+    gen = torch.Generator(dev).manual_seed(ctx["seed"] + 3)
+    lo, hi = Xp[..., 0].amin(1), Xp[..., 0].amax(1)
+    u = torch.rand(STREAM_ROUNDS, Xp.shape[0], 2, generator=gen, device=dev)
+    xs = torch.stack([lo + (hi - lo) * u[..., 0], 2 * u[..., 1]], -1)
+    Xj = random_inputs(gen, WINDOW, dtype=torch.float32)
+
+    def noisy(X):
+        return field(X) + sigma_eps * torch.randn(
+            X.shape[0], generator=gen, dtype=torch.float32, device=dev)
+    ys = noisy(xs.reshape(-1, 2)).reshape(xs.shape[:2])
+    return xs, ys, Xj, noisy(Xj)
+
+
+def cholupdate_bound_ms(M: int, n: int, shift: int,
+                        sm_count: int) -> tuple[float, str, float]:
+    """Least time for the rank-1 update of M factors on the card: the
+    lower triangle of the updated (n - shift) block read once and written
+    once, and x read, over the memory rate; or 5 FP32 operations per
+    element (a fused multiply-add for u, the division, a multiply and a
+    fused multiply-add for x) over their peak rate, whichever is larger.
+    Also returns the column chain's latency floor (CHAIN_CYCLES_PER_COLUMN
+    per column at the maximum SM clock), reported beside it."""
+    m = n - shift
+    elems = M * m * (m + 1) // 2
+    t_bytes = 4 * (2 * elems + M * m) / HBM_BYTES_PER_S
+    t_ops = 5 * elems / FP32_FLOPS_PER_S
+    chain = m * CHAIN_CYCLES_PER_COLUMN / SM_CLOCK_HZ
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations", 1e3 * chain)
 
 
 def plain_local_grad(lt, Xi, yi):
@@ -275,7 +359,8 @@ def phase_kernels(ctx):
             ctx["rbf_matvec"] = case
         cases.append(case)
     return {"rel_tol": REL_TOL, "rbf_matvec": cases,
-            "nll_grad": nll_grad_cases(ctx, sms)}
+            "nll_grad": nll_grad_cases(ctx, sms),
+            "cholupdate": cholupdate_cases(ctx, sms)}
 
 
 def nll_grad_cases(ctx, sms):
@@ -345,6 +430,108 @@ def nll_grad_cases(ctx, sms):
         cases.append(case)
         del d2u, inner
     torch.cuda.empty_cache()
+    return cases
+
+
+def cholupdate_cases(ctx, sms):
+    """cholupdate against its plain version on the card, relative to max
+    |L'| per agent: the real shift=1 eviction of the paper fleet's four
+    factors (timed, with the refactorization as yardstick), an update and
+    a downdate that keeps the factor positive definite at n = 8,099,
+    random factors at the edge shapes, a partially filled window whose x
+    is zero beyond its count, a zero x (bitwise no-op) and a mask with two
+    of four agents active (the others bitwise untouched)."""
+    import torch
+    from repro_torch.core.gp import cov_matrix, pack
+    from repro_torch.core.online import from_batch
+    from repro_torch.kernels import cholupdate as C
+    dev = torch.device(DEVICE)
+    Xp, yp, _, _ = paper_data(ctx)
+    lt = pack(*TRUE_THETA, dtype=torch.float32, device=dev)
+    gen = torch.Generator(dev).manual_seed(ctx["seed"] + 4)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def factor(X):
+        return torch.linalg.cholesky(cov_matrix(X, lt, 1e-8)).contiguous()
+
+    def check(name, L, x, shift=0, downdate=False, active=None):
+        got = C.cholupdate(L, x, downdate, shift, active)
+        start.record()
+        want = C.cholupdate_plain(L, x, downdate, shift, active)
+        end.record()
+        torch.cuda.synchronize()
+        err = (got - want).abs().amax((1, 2))
+        M, n, _ = L.shape
+        case = {"case": name, "M": M, "n": n, "shift": shift,
+                "downdate": downdate,
+                "max_rel_err": float((err / want.abs().amax((1, 2))
+                                      .clamp_min(1e-30)).max()),
+                "max_abs_err": float(err.max()),
+                "plain_ms": start.elapsed_time(end)}
+        ok = case["max_rel_err"] <= REL_TOL
+        if not bool(x.any()):
+            case["bitwise_unchanged"] = bool(torch.equal(got, L)
+                                             and torch.equal(want, L))
+            ok = ok and case["bitwise_unchanged"]
+        if active is not None:
+            case["inactive_bitwise_unchanged"] = bool(
+                torch.equal(got[~active], L[~active]))
+            ok = ok and case["inactive_bitwise_unchanged"]
+        if not ok:
+            raise AssertionError(f"cholupdate disagrees with its plain "
+                                 f"version at {case}")
+        return case, got
+
+    cases = []
+    L = factor(Xp)
+    x = L[:, :, 0]
+    case, evicted = check("evict", L, x, shift=1)
+    case["ms"] = cuda_ms(lambda: C.cholupdate(L, x, shift=1), 20)
+    case["refactorization_ms"] = cuda_ms(
+        lambda: torch.linalg.cholesky(L @ L.mT + x[..., :, None]
+                                      * x[..., None, :]), 3, warmup=1)
+    # where the time goes: the same launches with every column skipped (a
+    # zero x: loads and stores, no rotation arithmetic), and with every
+    # agent masked out (the fill's copy and the launches alone)
+    case["ms_zero_x"] = cuda_ms(
+        lambda: C.cholupdate(L, torch.zeros_like(x), shift=1), 10)
+    case["ms_all_agents_inactive"] = cuda_ms(
+        lambda: C.cholupdate(L, x, shift=1, active=torch.zeros(
+            L.shape[0], dtype=torch.bool, device=dev)), 10)
+    case["bound_ms"], case["bound_by"], case["chain_floor_ms"] = \
+        cholupdate_bound_ms(*L.shape[:2], 1, sms)
+    ctx["cholupdate"] = case
+    cases.append(case)
+    del L, x
+
+    L = evicted[:, :-1, :-1].contiguous()          # the windows less slot 0
+    del evicted
+    x = 0.5 * torch.randn(L.shape[:2], generator=gen, device=dev)
+    case, up = check("update", L, x)
+    cases.append(case)
+    cases.append(check("downdate", up, x, downdate=True)[0])
+    del L, up
+    torch.cuda.empty_cache()
+
+    for M, n in CHOLUPDATE_EDGE_SHAPES:
+        L = factor(2 * torch.rand(M, n, 2, generator=gen, device=dev))
+        x = torch.randn(M, n, generator=gen, device=dev)
+        cases.append(check("update", L, x)[0])
+    state = from_batch(lt, Xp[:, :500], yp[:, :500], window=777)
+    L = state.L.contiguous()
+    x = L[:, :, 0]
+    case = check("evict_partial_window", L, x, shift=1)[0]
+    case["x_zero_beyond_count"] = bool((x[:, 500:] == 0).all())
+    if not case["x_zero_beyond_count"]:
+        raise AssertionError("a sentinel row of the window factor is not "
+                             "zero in column 0")
+    cases.append(case)
+    L = factor(2 * torch.rand(4, 1013, 2, generator=gen, device=dev))
+    cases.append(check("zero_x", L, torch.zeros(4, 1013, device=dev))[0])
+    cases.append(check("mask", L, L[:, :, 0], shift=1,
+                       active=torch.tensor([True, False, True, False],
+                                           device=dev))[0])
     return cases
 
 
@@ -617,6 +804,207 @@ def phase_train(ctx):
             [-PAPER_KAPPA_ITERS:].tolist()}
 
 
+def _rel_per_agent(a, b) -> float:
+    """max over agents of max |a - b| / max |b| (b the reference)."""
+    dims = tuple(range(1, b.dim()))
+    return float(((a.double() - b.double()).abs().amax(dims)
+                  / b.double().abs().amax(dims).clamp_min(1e-30)).max())
+
+
+def phase_online(ctx):
+    import torch
+    from repro_torch.core.consensus import is_connected
+    from repro_torch.core.gp import pack
+    from repro_torch.core.online import OnlineExperts, refit
+    from repro_torch.core.online.experts import _cho_solve, _fwd_solve
+    from repro_torch.core.prediction import PredictionEngine
+    from repro_torch.fleet import FleetConfig, GPFleet
+    from repro_torch.kernels import cholupdate as C
+    from repro_torch.kernels import nll_grad as G
+    from repro_torch.kernels import rbf_matvec as K
+    from repro_torch.kernels.ops import cholupdate_fleet
+    dev = torch.device(DEVICE)
+    Xp, yp, Xq, fq = paper_data(ctx)
+    xs, ys, Xj, yj = online_data(ctx)
+    Xb, fb = Xq[:BIG], fq[:BIG]
+    lt = pack(*TRUE_THETA, dtype=torch.float32, device=dev)
+    cfg = FleetConfig(online=True, window=WINDOW, stream_mean=True,
+                      kappa=TRAIN_KAPPA)
+    assert (cfg.num_agents, cfg.graph, cfg.method, cfg.chunk,
+            cfg.trainer) == (4, "path", "rbcm", 256, "dec-apx"), cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    fleet = GPFleet(cfg, device=DEVICE).fit(Xp, yp, log_theta0=lt,
+                                            train=False)
+    torch.cuda.synchronize()
+    fit_ms = 1e3 * (time.perf_counter() - t0)
+    fleet.predict(Xq[:BATCH])                       # warm-up
+    torch.cuda.synchronize()
+    engine = fleet.engine
+    kept = (engine.A.data_ptr(), engine.fitted.log_theta.data_ptr())
+
+    # the streaming path: counts reset just before, read just after
+    C.reset_launches()
+    K.reset_launches()
+    G.reset_launches()
+    round_ms, round_launches, batch_ms, sq_err = [], [], [], []
+    t_all = time.perf_counter()
+    for r in range(STREAM_ROUNDS):
+        before = C.launches
+        t0 = time.perf_counter()
+        fleet.observe(xs[r], ys[r])
+        torch.cuda.synchronize()
+        round_ms.append(1e3 * (time.perf_counter() - t0))
+        round_launches.append(C.launches - before)
+        if (r + 1) % SERVE_EVERY == 0:
+            q0 = (len(batch_ms) * BATCH) % Xq.shape[0]
+            t0 = time.perf_counter()
+            m, _, _ = fleet.predict(Xq[q0:q0 + BATCH])
+            torch.cuda.synchronize()
+            batch_ms.append(1e3 * (time.perf_counter() - t0))
+            sq_err.append((m - fq[q0:q0 + BATCH]) ** 2)
+    stream_s = time.perf_counter() - t_all
+    launches = {"cholupdate": C.launches, "rbf_matvec": K.launches,
+                "nll_grad": G.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    if round_launches != [1] * STREAM_ROUNDS:
+        raise AssertionError(f"cholupdate launches per observe round: "
+                             f"{round_launches}")
+    if launches["rbf_matvec"] != len(batch_ms) * -(-BATCH // cfg.chunk) \
+            or launches["nll_grad"]:
+        raise AssertionError(f"launches while streaming: {launches}")
+    if not bool((fleet.window_counts == WINDOW).all()):
+        raise AssertionError(f"window counts {fleet.window_counts}")
+    if fleet.engine is not engine or kept != (
+            engine.A.data_ptr(), engine.fitted.log_theta.data_ptr()) \
+            or engine.fitted.L is not fleet.fitted.L:
+        raise AssertionError("the stream rebuilt the engine or its "
+                             "adjacency instead of swapping the factors")
+    rmse_stream = float(torch.sqrt(torch.cat(sq_err).mean()))
+    if not rmse_stream < RMSE_LIMIT:
+        raise AssertionError(f"RMSE {rmse_stream} while streaming is not "
+                             f"below {RMSE_LIMIT}")
+
+    # one round's parts on the live windows: the rank-1 update, and the
+    # append's solve with alpha's two
+    st = fleet._online_state
+    full = st.count >= WINDOW
+    chol_ms = cuda_ms(lambda: cholupdate_fleet(st.L, st.L[:, :, 0],
+                                               shift=1, active=full), 5,
+                      warmup=1)
+    solves_ms = cuda_ms(lambda: (_fwd_solve(st.L, st.yw),
+                                 _cho_solve(st.L, st.yw)), 5, warmup=1)
+
+    # the streamed windows against a float32 and a float64 refit of them
+    ref32 = refit(st)
+    ref64 = refit(OnlineExperts(*(t.double() if t.is_floating_point()
+                                  else t for t in st)))
+    errs = {}
+    for name in ("L", "alpha"):
+        a, r32, r64 = (getattr(s_, name) for s_ in (st, ref32, ref64))
+        errs[name] = {"stream_vs_refit32": _rel_per_agent(a, r32),
+                      "stream_vs_refit64": _rel_per_agent(a, r64),
+                      "refit32_vs_refit64": _rel_per_agent(r32, r64)}
+    del ref32
+    engine64 = PredictionEngine(ref64.to_fitted(), fleet.A, chunk=cfg.chunk,
+                                dac_iters=cfg.dac_iters, stream_mean=False,
+                                device=DEVICE)
+    m64 = engine64.predict("rbcm", Xb.double())[0]
+    del engine64, ref64
+    fresh = GPFleet(FleetConfig(stream_mean=True), A=fleet.A,
+                    device=DEVICE).fit(st.Xw, st.yw, log_theta0=lt,
+                                       train=False)
+    m_fresh = fresh.predict(Xb)[0]
+    del fresh
+    m_stream = fleet.predict(Xb)[0]
+    errs["mean"] = {
+        "stream_vs_fresh32": float((m_stream - m_fresh).abs().max()),
+        "stream_vs_fresh64": float((m_stream.double() - m64).abs().max()),
+        "fresh32_vs_fresh64": float((m_fresh.double() - m64).abs().max())}
+    torch.cuda.empty_cache()
+    for name, ref in (("L", "refit"), ("alpha", "refit"), ("mean", "fresh")):
+        e = errs[name]
+        if not e[f"stream_vs_{ref}64"] <= \
+                F32_FACTOR * e[f"{ref}32_vs_{ref}64"]:
+            raise AssertionError(f"streamed {name} is further from float64 "
+                                 f"than {F32_FACTOR} x float32's own error: "
+                                 f"{e}")
+
+    # drift: DEC-apx-GP on the live windows, refit, swap
+    G.reset_launches()
+    C.reset_launches()
+    t0 = time.perf_counter()
+    info = fleet.drift(iters=DRIFT_ITERS)
+    torch.cuda.synchronize()
+    drift_ms = 1e3 * (time.perf_counter() - t0)
+    drift_launches = {"nll_grad": G.launches, "cholupdate": C.launches}
+    if drift_launches != {"nll_grad": DRIFT_ITERS, "cholupdate": 0}:
+        raise AssertionError(f"drift launches {drift_launches} for "
+                             f"{DRIFT_ITERS} iterations")
+    if fleet.engine is not engine or not bool(
+            torch.isfinite(fleet.log_theta).all()):
+        raise AssertionError("drift rebuilt the engine or left a "
+                             "non-finite theta")
+    m_drift = fleet.predict(Xb)[0]
+    rmse_drift = float(torch.sqrt(((m_drift - fb) ** 2).mean()))
+
+    # membership: one agent joins with WINDOW points, agent 1 leaves
+    t0 = time.perf_counter()
+    fleet.join(Xj, yj)
+    fleet.leave(1)
+    torch.cuda.synchronize()
+    membership_ms = 1e3 * (time.perf_counter() - t0)
+    if fleet.num_agents != 4 or not is_connected(fleet.A) \
+            or fleet.engine is not engine:
+        raise AssertionError("join/leave left a wrong fleet or graph")
+    st = fleet._online_state
+    m_mem = fleet.predict(Xb)[0]
+    fresh = GPFleet(FleetConfig(stream_mean=True), A=fleet.A,
+                    device=DEVICE).fit(st.Xw, st.yw,
+                                       log_theta0=fleet.log_theta,
+                                       train=False)
+    mem_err = float((m_mem - fresh.predict(Xb)[0]).abs().max())
+    del fresh
+    rmse_mem = float(torch.sqrt(((m_mem - fb) ** 2).mean()))
+    if not (rmse_drift < RMSE_LIMIT and rmse_mem < RMSE_LIMIT):
+        raise AssertionError(f"RMSE after drift {rmse_drift}, after "
+                             f"join/leave {rmse_mem}: not below "
+                             f"{RMSE_LIMIT}")
+    if not mem_err <= errs["mean"]["fresh32_vs_fresh64"]:
+        raise AssertionError(f"after join/leave the means are {mem_err} "
+                             f"from a fresh fleet on the same windows")
+    torch.cuda.empty_cache()
+
+    ctx["launches"]["cholupdate"] = launches["cholupdate"]
+    ctx["online_fleet"], ctx["online_round"] = fleet, (xs[0], ys[0])
+    n_obs = STREAM_ROUNDS * cfg.num_agents
+    mean_round = sum(round_ms) / len(round_ms)
+    return {"agents": cfg.num_agents, "window": WINDOW, "dtype": "float32",
+            "rounds": STREAM_ROUNDS, "serve_every": SERVE_EVERY,
+            "fit_ms": fit_ms, "stream_s": stream_s,
+            "observations_per_s": n_obs / stream_s,
+            "queries_per_s_while_streaming": len(batch_ms) * BATCH / stream_s,
+            "mean_observe_round_ms": mean_round,
+            "max_observe_round_ms": max(round_ms),
+            "cholupdate_ms_per_round": chol_ms,
+            "solves_ms_per_round": solves_ms,
+            "rest_ms_per_round": mean_round - chol_ms - solves_ms,
+            "mean_batch_ms_while_streaming": sum(batch_ms) / len(batch_ms),
+            "peak_memory_bytes": peak, "stream_launches": launches,
+            "rmse_vs_field_while_streaming": rmse_stream,
+            "f32_factor": F32_FACTOR, "errors_vs_refit": errs,
+            "drift_iters": DRIFT_ITERS, "drift_ms": drift_ms,
+            "drift_launches": drift_launches,
+            "drift_final_residual": float(info["residuals"][-1]),
+            "theta_after_drift": torch.exp(fleet.log_theta).tolist(),
+            "rmse_vs_field_after_drift": rmse_drift,
+            "join_leave_ms": membership_ms,
+            "max_abs_mean_vs_fresh_after_join_leave": mem_err,
+            "rmse_vs_field_after_join_leave": rmse_mem}
+
+
 def _profiled(fn, port_kernel):
     """Device time by kernel over one call of `fn` (after a warm-up), the
     port kernel's device time and launches, and the device's busy share
@@ -653,11 +1041,13 @@ def _profiled(fn, port_kernel):
 
 def phase_profile(ctx):
     """One served 256-query batch and one DEC-apx-GP iteration of the
-    training path (from the trained theta), each traced alone."""
+    training path (from the trained theta), and one observe round and one
+    served batch of the streaming fleet, each traced alone."""
     from repro_torch.core.training import train_dec_apx_gp
     fleet, Xb = ctx["fleet"], ctx["queries"][:BATCH]
     Xp, yp, _, _ = paper_data(ctx)
     cfg = fleet.config
+    online, (x1, y1) = ctx["online_fleet"], ctx["online_round"]
     return {"batch": BATCH,
             "serve_batch": _profiled(lambda: fleet.predict(Xb),
                                      "rbf_matvec"),
@@ -665,15 +1055,20 @@ def phase_profile(ctx):
                 lambda: train_dec_apx_gp(ctx["trained_theta"], Xp, yp,
                                          fleet.A, rho=cfg.rho,
                                          kappa=cfg.kappa, iters=1),
-                "nll_grad")}
+                "nll_grad"),
+            "observe_round": _profiled(lambda: online.observe(x1, y1),
+                                       "cholupdate"),
+            "online_serve_batch": _profiled(lambda: online.predict(Xb),
+                                            "rbf_matvec")}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one served batch and one ADMM "
-                         "iteration with torch.profiler")
+                    help="also trace one served batch, one ADMM "
+                         "iteration and one observe round with "
+                         "torch.profiler")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -691,7 +1086,8 @@ def main(argv=None) -> int:
     ctx = {"seed": args.seed, "launches": {}}
     failed = []
     phases = [("build", phase_build), ("kernels", phase_kernels),
-              ("serve", phase_serve), ("train", phase_train)]
+              ("serve", phase_serve), ("train", phase_train),
+              ("online", phase_online)]
     if args.profile:
         phases.append(("profile", phase_profile))
     for name, fn in phases:
@@ -708,7 +1104,8 @@ def main(argv=None) -> int:
         return 1
     rows = []
     for name, replaces in (("rbf_matvec", "src/repro/kernels/rbf_matvec.py:46"),
-                           ("nll_grad", "src/repro/kernels/nll_grad.py:73")):
+                           ("nll_grad", "src/repro/kernels/nll_grad.py:73"),
+                           ("cholupdate", "src/repro/kernels/cholupdate.py:69")):
         k = ctx[name]
         rows.append({
             "name": name, "route": "cuda",

@@ -43,6 +43,42 @@ def random_connected_graph(M: int, p: float, seed: int = 0) -> torch.Tensor:
     return torch.from_numpy(np.maximum(A, extra + extra.T))
 
 
+def attach_agent(A, neighbors) -> torch.Tensor:
+    """Grow A by one node wired (bidirectionally) to `neighbors`.
+
+    The joiner must attach to at least one existing agent or the fleet
+    would split into components and consensus would silently average
+    per component.
+    """
+    An = np.asarray(torch.as_tensor(A).cpu())
+    M = An.shape[0]
+    neighbors = [int(n) for n in np.atleast_1d(np.asarray(neighbors))]
+    if M and not neighbors:
+        raise ValueError("joining agent needs at least one neighbor")
+    if any(not 0 <= n < M for n in neighbors):
+        raise ValueError(f"neighbors {neighbors} out of range for M={M}")
+    A2 = np.zeros((M + 1, M + 1), An.dtype)
+    A2[:M, :M] = An
+    for n in neighbors:
+        A2[M, n] = A2[n, M] = 1.0
+    return torch.from_numpy(A2)
+
+
+def remove_agent(A, i: int, reconnect: bool = True) -> torch.Tensor:
+    """Delete node i from A. With `reconnect`, the removed node's former
+    neighbors are chained in index order, so removing a cut vertex (e.g.
+    an interior path node) cannot disconnect the graph."""
+    An = np.asarray(torch.as_tensor(A).cpu())
+    i = int(i)
+    nbrs = np.flatnonzero(An[i] > 0)
+    A2 = np.delete(np.delete(An, i, axis=0), i, axis=1)
+    if reconnect and len(nbrs) > 1:
+        shifted = [int(n) - (n > i) for n in nbrs]
+        for a, b in zip(shifted[:-1], shifted[1:]):
+            A2[a, b] = A2[b, a] = 1.0
+    return torch.from_numpy(A2)
+
+
 def degree_matrix(A: torch.Tensor) -> torch.Tensor:
     return torch.diag(A.sum(dim=1))
 

@@ -12,7 +12,10 @@ Counterpart of `repro.core.prediction.engine` for the DAC family:
                      centralized references cen_*. With
                      `stream_mean=True` the posterior means ride the fused
                      Gram-matvec kernel (kernels.rbf_matvec), one launch
-                     per query tile for the whole fleet.
+                     per query tile for the whole fleet. `swap_experts`
+                     replaces the served factors of a streaming fleet
+                     (core.online) in place; `rewire` applies a
+                     membership change (new adjacency, new M).
 
 PyTorch runs eagerly, so the reference's jit cache and trace counters have
 no counterpart here.
@@ -152,6 +155,42 @@ class PredictionEngine:
         perq, red = map_query_tiles(lambda Xq: self._tile(method, Xq), Xs,
                                     self.chunk)
         return perq["mean"], perq["var"], red
+
+    def swap_experts(self, fitted: FittedExperts):
+        """Hot-swap the served factors (the streaming case:
+        `OnlineExperts.to_fitted()` after observe/evict events).
+
+        The replacement must match the served experts field for field in
+        shape, dtype and device; the adjacency and everything else the
+        engine holds stay as they are. Raises otherwise — a changed agent
+        count or window is a membership change: use `rewire`."""
+        if not isinstance(fitted, FittedExperts):
+            raise TypeError(f"swap_experts: want FittedExperts, got "
+                            f"{type(fitted).__name__}")
+        for name, new, old in zip(FittedExperts._fields, fitted,
+                                  self.fitted):
+            if (new.shape, new.dtype, new.device) != \
+                    (old.shape, old.dtype, old.device):
+                raise ValueError(
+                    f"swap_experts: {name} changed from {tuple(old.shape)} "
+                    f"{old.dtype} on {old.device} to {tuple(new.shape)} "
+                    f"{new.dtype} on {new.device} (agent membership or "
+                    f"window geometry) — use rewire()")
+        self.fitted = fitted
+
+    def rewire(self, A, fitted: FittedExperts | None = None):
+        """Apply a membership or topology change (core.online.join /
+        leave): a new adjacency and optionally a new fleet, on the engine's
+        device. The DAC consensus reads A at every call, so this is all it
+        takes to re-sync it to the new graph."""
+        experts = fitted if fitted is not None else self.fitted
+        A = torch.as_tensor(A)
+        if experts.num_agents != A.shape[0]:
+            raise ValueError(f"rewire: {experts.num_agents} fitted agents "
+                             f"vs adjacency for {A.shape[0]}")
+        self.A = A.to(self.device, torch.float64)
+        if fitted is not None:
+            self.fitted = fitted.to(self.device)
 
     def posterior_means_streamed(self, Xs):
         """Per-agent streamed posterior means (M, Nt) via the fused

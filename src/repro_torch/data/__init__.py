@@ -1,3 +1,3 @@
-from .synthetic import gp_sample_field, grid_inputs, random_inputs
+from .synthetic import gp_sample_field, grid_inputs, random_inputs, rff_field
 
-__all__ = ["gp_sample_field", "grid_inputs", "random_inputs"]
+__all__ = ["gp_sample_field", "grid_inputs", "random_inputs", "rff_field"]

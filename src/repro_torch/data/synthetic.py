@@ -55,11 +55,27 @@ def gp_sample_field(generator: torch.Generator, X: torch.Tensor,
         L = torch.linalg.cholesky(K)
         f = L @ torch.randn(n, **kw)
     else:
-        # RFF for k(x,x') = sf^2 exp(-sum d^2/l^2): the spectral density is
-        # Gaussian with std sqrt(2)/l per dimension
-        W = torch.randn(rff_features, D, **kw) * (math.sqrt(2.0) / ls)
-        b = 2 * math.pi * torch.rand(rff_features, **kw)
-        phi = math.sqrt(2.0 / rff_features) * torch.cos(X @ W.T + b)
-        f = sigma_f * (phi @ torch.randn(rff_features, **kw))
+        f = rff_field(generator, log_theta, D, rff_features, X.dtype)(X)
     y = f + sigma_eps * torch.randn(n, **kw)
     return f, y
+
+
+def rff_field(generator: torch.Generator, log_theta: torch.Tensor, D: int,
+              rff_features: int = 4096, dtype=torch.float64):
+    """One random-Fourier-feature draw f ~ GP(0, k), returned as a function
+    of the inputs X (N, D) -> f (N,) on the generator's device: more points
+    of the same field cost O(N * F). `gp_sample_field` draws its large
+    fields through it, so the same generator state gives the same field.
+    """
+    ls, sigma_f, _ = unpack(log_theta)
+    kw = dict(generator=generator, dtype=dtype, device=generator.device)
+    # RFF for k(x,x') = sf^2 exp(-sum d^2/l^2): the spectral density is
+    # Gaussian with std sqrt(2)/l per dimension
+    W = torch.randn(rff_features, D, **kw) * (math.sqrt(2.0) / ls)
+    b = 2 * math.pi * torch.rand(rff_features, **kw)
+    w = torch.randn(rff_features, **kw)
+
+    def field(X: torch.Tensor) -> torch.Tensor:
+        phi = math.sqrt(2.0 / rff_features) * torch.cos(X @ W.T + b)
+        return sigma_f * (phi @ w)
+    return field

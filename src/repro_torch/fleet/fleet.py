@@ -7,11 +7,18 @@
 Counterpart of `repro.fleet.fleet.GPFleet` for the replicated path:
 `fit` trains the hyperparameters with the configured trainer (TRAINERS)
 and caches the factors at the trained theta, or with `train=False` serves
-known hyperparameters; `predict` dispatches to the PredictionEngine. The
-fleet runs on `device` (default: cuda; raises when no card is present and
-the caller did not pass device="cpu"). Persistence, training traces,
-online experts and the sharded engine are not ported yet (ROADMAP queue
-A).
+known hyperparameters; `predict` dispatches to the PredictionEngine. With
+FleetConfig(online=True) the factors are sliding windows (core.online):
+
+    fleet = GPFleet(FleetConfig(online=True, window=W)).fit(Xp, yp)
+    fleet.observe(xs, ys)       # O(W^2) rank-1 updates, swapped into the
+    fleet.predict(Xs)           # engine in place (swap_experts)
+    fleet.drift(iters=5)        # retrain on the live windows, refit, swap
+    fleet.join(X_new, y_new); fleet.leave(1)   # membership: rewire
+
+The fleet runs on `device` (default: cuda; raises when no card is present
+and the caller did not pass device="cpu"). Persistence, training traces
+and the sharded engine are not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ import torch
 from ..core.consensus import (complete_graph, cycle_graph, path_graph,
                               random_connected_graph)
 from ..core.gp import pack
+from ..core.online import (OnlineExperts, from_batch, join, leave,
+                           observe_fleet, refit)
 from ..core.prediction import FittedExperts, PredictionEngine, fit_experts
 from ..device import resolve_device
 from .config import FleetConfig
@@ -62,11 +71,19 @@ class GPFleet:
         self.thetas = None             # per-agent hyperparameters (M, K)
         self.train_info = {}           # the trainer's info dict
         self.fitted: FittedExperts | None = None
+        self._online_state: OnlineExperts | None = None
         self._engine: PredictionEngine | None = None
 
     @property
     def num_agents(self) -> int:
         return self.config.num_agents
+
+    @property
+    def window_counts(self):
+        """(M,) real observations per agent's sliding window, or None for
+        batch (non-online) fleets."""
+        return None if self._online_state is None \
+            else self._online_state.count
 
     @property
     def engine(self) -> PredictionEngine:
@@ -130,7 +147,14 @@ class GPFleet:
                            if thetas is None
                            else _tensor(thetas, Xp.dtype, self.device))
             self.train_info = {}
-        self.fitted = fit_experts(self.log_theta, Xp, yp, jitter=cfg.jitter)
+        if cfg.online:
+            self._online_state = from_batch(self.log_theta, Xp, yp,
+                                            window=cfg.window,
+                                            jitter=cfg.jitter)
+            self.fitted = self._online_state.to_fitted()
+        else:
+            self.fitted = fit_experts(self.log_theta, Xp, yp,
+                                      jitter=cfg.jitter)
         self._engine = None
         return self
 
@@ -143,3 +167,85 @@ class GPFleet:
                   else self.config.method).replace("-", "_")
         get_method(method[4:] if method.startswith("cen_") else method)
         return self.engine.predict(method, Xs)
+
+    # -- streaming / membership ----------------------------------------------
+
+    def _require_online(self, verb: str) -> OnlineExperts:
+        if self.fitted is None:
+            raise RuntimeError(f"{verb} needs a fitted fleet — call fit() "
+                               f"first")
+        if self._online_state is None:
+            raise RuntimeError(
+                f"{verb} needs a streaming fleet — construct with "
+                f"FleetConfig(online=True) before fit()")
+        return self._online_state
+
+    def _swap(self, state: OnlineExperts) -> None:
+        self._online_state = state
+        self.fitted = state.to_fitted()
+        if self._engine is not None:
+            self._engine.swap_experts(self.fitted)
+
+    def observe(self, xs, ys) -> "GPFleet":
+        """Ingest one observation per agent (xs (M, D), ys (M,)) through the
+        O(W^2) rank-1 factor updates and swap the engine's served factors
+        in place. Returns self."""
+        state = self._require_online("observe")
+        dt = state.Xw.dtype
+        self._swap(observe_fleet(state, _tensor(xs, dt, self.device),
+                                 _tensor(ys, dt, self.device)))
+        return self
+
+    def drift(self, *, grad_fn=None, iters: int | None = None) -> dict:
+        """Re-run the configured trainer on the LIVE sliding windows and
+        swap the retrained factors into the serving engine — the
+        drift-adaptation loop: stream with `observe`, periodically `drift`
+        so the hyperparameters track the data the windows hold now.
+
+        Training uses the filled window prefix shared by every agent
+        (`min(window_counts)` observations; sentinel slots never enter the
+        likelihood), warm-starts from the current theta, and `iters` caps
+        this epoch's ADMM budget (default config.admm_iters). The windows
+        are refit at the new theta and swapped in place (`swap_experts`).
+        Returns the trainer's info dict."""
+        state = self._require_online("drift")
+        n = int(state.count.min())
+        if n < 2:
+            raise RuntimeError(
+                f"drift needs >= 2 observations in every agent's window "
+                f"(min count is {n}) — stream more data with observe() "
+                f"first")
+        spec = get_trainer(self.config.trainer)
+        cfg = self.config if iters is None \
+            else self.config.replace(admm_iters=int(iters))
+        self.log_theta, self.thetas, info = spec.run(
+            cfg, self.log_theta, state.Xw[:, :n], state.yw[:, :n], self.A,
+            grad_fn=grad_fn)
+        self._swap(refit(state._replace(
+            log_theta=self.log_theta.to(state.log_theta.dtype))))
+        return info
+
+    def join(self, X_new=None, y_new=None, neighbors=None) -> "GPFleet":
+        """One agent joins the streaming fleet (window seeded from X_new /
+        y_new); the consensus graph is attached and the engine rewired on
+        the new M."""
+        state = self._require_online("join")
+        self._online_state, self.A = join(state, self.A, X_new, y_new,
+                                          neighbors=neighbors)
+        self._after_membership_change()
+        return self
+
+    def leave(self, agent: int) -> "GPFleet":
+        """Agent `agent` leaves; former neighbors are re-chained so the
+        consensus graph stays connected."""
+        state = self._require_online("leave")
+        self._online_state, self.A = leave(state, self.A, agent)
+        self._after_membership_change()
+        return self
+
+    def _after_membership_change(self):
+        self.fitted = self._online_state.to_fitted()
+        self.config = self.config.replace(
+            num_agents=self._online_state.num_agents)
+        if self._engine is not None:
+            self._engine.rewire(self.A, fitted=self.fitted)

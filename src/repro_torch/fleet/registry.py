@@ -121,7 +121,6 @@ _LATER_METHODS["npae_sparse"] = "ROADMAP queue A item 6 (sparse experts)"
 _LATER_SWITCHES = (
     ("sharded", "ROADMAP queue A item 7 (multi-GPU)"),
     ("routed", "ROADMAP queue A item 7 (multi-GPU)"),
-    ("online", "ROADMAP queue A item 5 (online experts)"),
     ("sparse_m", "ROADMAP queue A item 6 (sparse experts)"),
     ("cache_cross", "ROADMAP queue A item 3 (CBNN, grBCM, NPAE)"),
 )

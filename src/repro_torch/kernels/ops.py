@@ -4,12 +4,14 @@ The CUDA path computes in float32 like the reference's Pallas path
 (repro/kernels/ops.py: rbf_matvec and nll_grad_fused cast their operands
 to float32); the CPU path keeps the input dtype like the reference's jnp
 path. rbf_matvec's callers cast the result back to their query dtype
-(core.prediction.local.stream_means); nll_grad_fused returns d2u's dtype.
+(core.prediction.local.stream_means); nll_grad_fused returns d2u's dtype;
+cholupdate returns L's dtype, as the reference's does.
 """
 from __future__ import annotations
 
 import torch
 
+from . import cholupdate as _cholupdate
 from . import nll_grad as _nll_grad
 from . import rbf_matvec as _rbf_matvec
 
@@ -71,3 +73,30 @@ def nll_grad_fused(log_theta, d2u, inner, K=None):
     d2u (D, N, N), inner (N, N), K (N, N) or None."""
     return nll_grad_fused_agents(log_theta[None], d2u[None], inner[None],
                                  None if K is None else K[None])[0]
+
+
+def cholupdate_fleet(L, x, downdate: bool = False, shift: int = 0,
+                     active=None):
+    """Every agent's rank-1 update chol(L L^T +/- x x^T) in one kernel call
+    -> (M, n, n) in L's dtype.
+
+    L (M, n, n) lower triangular, x (M, n), `active` (M,) bool or None
+    (agents left out come back unchanged). `shift=k` updates the trailing
+    block with x[:, k:] and returns it moved k slots up-left; rows n-k ..
+    n-1 of the result are L's stale rows. On the card the operands are cast
+    to float32 and the result back to L's dtype, as the reference's Pallas
+    path does; on the CPU the plain version keeps L's dtype."""
+    if L.device.type == "cpu":
+        return _cholupdate.cholupdate(L, x, downdate, shift, active)
+    out = _cholupdate.cholupdate(L.to(torch.float32).contiguous(),
+                                 x.to(torch.float32), downdate, shift,
+                                 active)
+    return out.to(L.dtype)
+
+
+def cholupdate(L, x, downdate: bool = False, shift: int = 0):
+    """Rank-1 Cholesky update/downdate of one factor -> (n, n).
+
+    Signature of the reference's `ops.cholupdate`: L (n, n) lower
+    triangular, x (n,)."""
+    return cholupdate_fleet(L[None], x[None], downdate, shift)[0]

@@ -62,3 +62,49 @@ def nll_grad_fused_ref(log_theta, d2u, inner, K=None, bn: int = 256):
     tr = torch.diagonal(inner, dim1=-2, dim2=-1).sum(-1)
     return torch.cat([sums[..., :D] * inv_l2, sums[..., D:D + 1],
                       (sigma_eps**2 * tr)[..., None]], -1)
+
+
+def cholupdate_ref(L, x, downdate: bool = False, bk: int = 128,
+                   shift: int = 0):
+    """Rank-1 Cholesky update/downdate chol(L L^T + sign x x^T) in O(n^2),
+    the blocked mirror of the reference's `ref.cholupdate_ref`.
+
+    One factor L (n, n), x (n,). Columns go in `bk`-wide panels; a panel
+    whose x entries are all zero is skipped (padding and the zero head of
+    an eviction vector are untouched). Within a panel each step takes the
+    whole trailing column without masking the rows above the diagonal and
+    keeps it unscaled until the panel ends; the garbage above the diagonal
+    is zeroed with one triu per panel. `shift=k` updates the trailing block
+    L[k:, k:] with x[k:] and writes it k slots up-left; rows and columns
+    n-k .. n-1 keep L's (stale) values. The sqrt argument is clamped to the
+    dtype's tiny, so a marginally indefinite downdate degrades instead of
+    giving NaN.
+    """
+    n = L.shape[0]
+    sign = -1.0 if downdate else 1.0
+    tiny = torch.finfo(L.dtype).tiny
+    L, x = L.clone(), x.clone()
+    for k0 in range(shift, n, bk):
+        b = min(bk, n - k0)
+        panel = L[k0:, k0:k0 + b].clone()                  # (m, b)
+        xc = x[k0:].clone()
+        if bool((xc[:b] != 0).any()):
+            cols, cs = [], []
+            for t in range(b):
+                col = panel[:, t]
+                Lkk, xk = col[t], xc[t]
+                r = torch.sqrt(torch.clamp(Lkk * Lkk + sign * xk * xk,
+                                           min=tiny))
+                c = r / Lkk
+                s = xk / Lkk
+                u = col + (sign * s) * xc
+                u[t] = r * c                               # newcol * c
+                xc = c * xc - (s / c) * u
+                cols.append(u)
+                cs.append(c)
+            cols = torch.stack(cols) / torch.stack(cs)[:, None]
+            cols[:, :b] = torch.triu(cols[:, :b])
+            panel = cols.T
+        L[k0 - shift:n - shift, k0 - shift:k0 + b - shift] = panel
+        x[k0:] = xc
+    return L

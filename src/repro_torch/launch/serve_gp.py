@@ -12,6 +12,16 @@ coalesce ragged requests into fixed-size micro-batches, serve them through
       --per-agent 128 --method rbcm --requests 64 --batch 256 --chunk 128
   PYTHONPATH=src python -m repro_torch.launch.serve_gp --device cpu \
       --trainer dec-apx --train-iters 5 --agents 4 --per-agent 64
+  PYTHONPATH=src python -m repro_torch.launch.serve_gp --device cpu \
+      --online --observe-every 4 --agents 4 --per-agent 64
+
+`--online` is the streaming front door (the reference's serve_online):
+the fleet keeps one sliding window per agent (FleetConfig(online=True)),
+and between prediction micro-batches every agent ingests
+`--observe-every` fresh observations through `GPFleet.observe` (rank-1
+factor updates on the hand-written cholupdate kernel, swapped into the
+engine in place). It prints q/s and obs/s and checks that the engine and
+its adjacency survived the stream and serve the streamed factors.
 
 It runs on the card unless `--device cpu` is given, in float32 with the
 streamed mean (the hand-written rbf_matvec kernel) unless `--no-stream`.
@@ -70,6 +80,57 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def serve_online(args, fleet: GPFleet, method: str, batches, total: int,
+                 generator: torch.Generator) -> None:
+    """Interleaved observe/predict loop: the live-fleet serving front door.
+
+    Observation events ride `GPFleet.observe` (O(W^2) rank-1 updates);
+    prediction micro-batches ride the engine, whose served factors are
+    swapped in place (`swap_experts`): the engine object, its adjacency
+    and its hyperparameters stay the same tensors (asserted at exit)."""
+    M, device = fleet.num_agents, fleet.device
+    dtype = fleet.fitted.Xp.dtype
+
+    def fresh():
+        xs = random_inputs(generator, M, dtype=dtype)
+        return xs, torch.randn(M, generator=generator, dtype=dtype,
+                               device=device)
+
+    # warm-up builds what the stream reuses (the kernels' libraries); the
+    # ingest is rolled back so serving starts from the fitted windows
+    state0, fitted0 = fleet._online_state, fleet.fitted
+    fleet.observe(*fresh())
+    fleet._online_state, fleet.fitted = state0, fitted0
+    fleet.predict(batches[0], method=method)
+    _sync(device)
+    engine = fleet.engine
+    kept = (engine.A.data_ptr(), engine.fitted.log_theta.data_ptr())
+    served0 = engine.fitted.L
+
+    n_obs = 0
+    t0 = time.perf_counter()
+    for b in batches:
+        for _ in range(args.observe_every):
+            fleet.observe(*fresh())
+            n_obs += M
+        fleet.predict(b, method=method)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    if fleet.engine is not engine or kept != (
+            engine.A.data_ptr(), engine.fitted.log_theta.data_ptr()):
+        raise AssertionError("the stream rebuilt the engine or its "
+                             "adjacency instead of swapping the factors")
+    if engine.fitted.L is not fleet.fitted.L or \
+            (n_obs and engine.fitted.L is served0):
+        raise AssertionError("the engine does not serve the streamed "
+                             "factors")
+    W = fleet.fitted.Xp.shape[1]
+    print(f"online {method}: served {total} queries + ingested {n_obs} "
+          f"observations in {dt * 1e3:.1f} ms ({total / dt:.0f} q/s, "
+          f"{n_obs / dt:.0f} obs/s, window={W}; engine and adjacency "
+          f"kept, factors swapped in place)")
+
+
 def main(argv=None):
     methods = sorted(method_names())
     cen = [f"cen_{m}" for m in methods]
@@ -93,17 +154,30 @@ def main(argv=None):
                          "hyperparameters)")
     ap.add_argument("--no-stream", action="store_true",
                     help="disable the streaming rbf_matvec mean path")
+    ap.add_argument("--online", action="store_true",
+                    help="interleave observe and predict streams (sliding-"
+                         "window experts, incremental factor updates, "
+                         "swapped into the engine between micro-batches)")
+    ap.add_argument("--observe-every", type=int, default=4,
+                    help="fleet-wide observations ingested between "
+                         "prediction micro-batches (online mode)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
     if args.train_iters < 0:
         ap.error("--train-iters must be >= 0")
+    if args.observe_every < 0:
+        ap.error("--observe-every must be >= 0")
+    if args.online and args.method.startswith("cen_"):
+        ap.error("centralized cen_* references serve on the replicated "
+                 "engine only")
     base = args.method[4:] if args.method.startswith("cen_") else args.method
     cfg = FleetConfig(num_agents=args.agents, method=base, chunk=args.chunk,
                       dac_iters=args.dac_iters,
                       stream_mean=not args.no_stream, trainer=args.trainer,
                       admm_iters=args.train_iters or FleetConfig.admm_iters,
-                      fact_steps=args.train_iters or FleetConfig.fact_steps)
+                      fact_steps=args.train_iters or FleetConfig.fact_steps,
+                      online=args.online)
     device = resolve_device(args.device)
     gen = torch.Generator(device).manual_seed(0)
 
@@ -128,6 +202,10 @@ def main(argv=None):
     batches, total, slices = micro_batches(requests, args.batch)
     print(f"queue: {args.requests} requests, {total} queries "
           f"-> {batches.shape[0]} micro-batches of {args.batch}")
+
+    if args.online:
+        serve_online(args, fleet, args.method, batches, total, gen)
+        return
 
     fleet.predict(batches[0], method=args.method)       # warm-up
     _sync(device)

@@ -124,7 +124,6 @@ def test_fleet_shape_errors(data):
     (dict(method="nope"), KeyError, "unknown prediction method"),
     (dict(trainer="nope"), KeyError, "unknown trainer"),
     (dict(sharded=True), ValueError, "item 7"),
-    (dict(online=True), ValueError, "item 5"),
     (dict(sparse_m=8), ValueError, "item 6"),
     (dict(cache_cross=True), ValueError, "not yet ported"),
 ])
@@ -133,6 +132,72 @@ def test_validate_config_rejects_what_is_not_ported(kw, err, match):
         validate_config(FleetConfig(**kw))
     with pytest.raises(err, match=match):
         GPFleet(FleetConfig(**kw), device="cpu")
+
+
+def test_online_config_validates_and_fits_on_the_cpu(data):
+    """Online experts are ported: the config validates, and fit builds the
+    sliding windows (window 32 < Ni keeps each agent's newest points)."""
+    Xp, yp, Xs = data
+    cfg = FleetConfig(online=True, window=32)
+    validate_config(cfg)
+    fleet = GPFleet(cfg, device="cpu").fit(Xp, yp, log_theta0=LOG_THETA,
+                                           train=False)
+    assert fleet.window_counts.tolist() == [32] * 4
+    assert fleet.fitted.L.shape == (4, 32, 32)
+    _close(fleet.fitted.Xp, Xp[:, -32:], 0)
+    assert GPFleet(FleetConfig(), device="cpu").fit(
+        Xp, yp, train=False).window_counts is None
+    with pytest.raises(RuntimeError, match="streaming fleet"):
+        GPFleet(FleetConfig(), device="cpu").fit(
+            Xp, yp, train=False).observe(Xs[:4], np.zeros(4))
+    with pytest.raises(RuntimeError, match="fit"):
+        GPFleet(cfg, device="cpu").observe(Xs[:4], np.zeros(4))
+
+
+@pytest.mark.parametrize("method", ["rbcm", "gpoe"])
+def test_online_fleet_observe_drift_join_leave_matches_reference(data,
+                                                                 method):
+    """The streaming lifecycle end to end against the JAX GPFleet on the
+    same float64 arrays: observe rounds, a drift epoch of DEC-apx-GP on
+    the live windows, a join, a leave, serving after each."""
+    Xp, yp, Xs = data
+    rng = np.random.default_rng(8)
+    kw = dict(online=True, window=30, chunk=16, dac_iters=150,
+              method=method, kappa=10_000.0)
+    fleet = GPFleet(FleetConfig(**kw), device="cpu").fit(
+        Xp, yp, log_theta0=LOG_THETA, train=False)
+    jfleet = JGPFleet(JFleetConfig(**kw)).fit(
+        jnp.asarray(Xp), jnp.asarray(yp),
+        log_theta0=jnp.asarray(LOG_THETA), train=False)
+
+    def same_predictions():
+        for got, want in zip(fleet.predict(Xs)[:2],
+                             jfleet.predict(jnp.asarray(Xs))[:2]):
+            _close(got, want)
+    same_predictions()
+    engine = fleet.engine
+    for _ in range(6):
+        xs, ys = rng.uniform(0, 2, (4, 2)), rng.standard_normal(4)
+        fleet.observe(xs, ys)
+        jfleet.observe(jnp.asarray(xs), jnp.asarray(ys))
+    assert fleet.engine is engine and engine.fitted.L is fleet.fitted.L
+    same_predictions()
+    info = fleet.drift(iters=3)
+    jinfo = jfleet.drift(iters=3)
+    _close(fleet.log_theta, jfleet.log_theta)
+    _close(info["residuals"], jinfo["residuals"], 1e-6)
+    same_predictions()
+    Xn, yn = rng.uniform(0, 2, (20, 2)), rng.standard_normal(20)
+    fleet.join(Xn, yn)
+    jfleet.join(jnp.asarray(Xn), jnp.asarray(yn))
+    assert fleet.num_agents == 5 and fleet.window_counts.tolist() == \
+        [30, 30, 30, 30, 20]
+    same_predictions()
+    fleet.leave(1)
+    jfleet.leave(1)
+    _close(fleet.A, jfleet.A, 0)
+    assert fleet.engine is engine and fleet.config.num_agents == 4
+    same_predictions()
 
 
 def test_registry_serves_the_dac_family():
@@ -166,6 +231,18 @@ def test_serve_gp_trains_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "trained (dec-apx, 5 rounds)" in out and "trained theta" in out
     assert "rbcm: served" in out
+
+
+def test_serve_gp_online_on_the_cpu(capsys):
+    serve_gp.main(["--device", "cpu", "--online", "--observe-every", "2",
+                   "--agents", "4", "--per-agent", "32", "--requests", "5",
+                   "--batch", "32", "--chunk", "16"])
+    out = capsys.readouterr().out
+    assert "online rbcm: served" in out and "obs/s" in out
+    assert "factors swapped in place" in out
+    with pytest.raises(SystemExit):
+        serve_gp.main(["--device", "cpu", "--online", "--method",
+                       "cen_rbcm"])
 
 
 def test_micro_batches_pad_and_slice():

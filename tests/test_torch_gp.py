@@ -20,7 +20,8 @@ from repro.data import grid_inputs as jgrid_inputs
 from repro_torch.core import consensus as tcons
 from repro_torch.core.gp import cov_matrix, pack, se_kernel, sq_dists, \
     stripe_partition, unpack
-from repro_torch.data import gp_sample_field, grid_inputs, random_inputs
+from repro_torch.data import (gp_sample_field, grid_inputs, random_inputs,
+                              rff_field)
 
 torch.set_num_threads(2)
 
@@ -181,3 +182,20 @@ def test_gp_sample_field_float32_exact_branch_finite():
     X = random_inputs(g, 300, dtype=torch.float32)
     f, y = gp_sample_field(g, X, _t(LOG_THETA).float())
     assert bool(torch.isfinite(f).all()) and bool(torch.isfinite(y).all())
+
+
+def test_rff_field_is_gp_sample_fields_large_draw():
+    """Above exact_max_n gp_sample_field draws its field through rff_field:
+    the same generator state gives the same field, and the returned
+    function evaluates it at more points."""
+    lt = _t(LOG_THETA).float()
+    g = torch.Generator().manual_seed(5)
+    X = random_inputs(g, 300, dtype=torch.float32)
+    f, y = gp_sample_field(g, X, lt, exact_max_n=100, rff_features=64)
+    g = torch.Generator().manual_seed(5)
+    X2 = random_inputs(g, 300, dtype=torch.float32)
+    field = rff_field(g, lt, 2, rff_features=64, dtype=torch.float32)
+    assert torch.equal(field(X2), f)
+    noise = torch.exp(lt[-1]) * torch.randn(300, generator=g)
+    assert torch.equal(f + noise, y)
+    assert field(X2[:7]).shape == (7,)

@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the hand-written rbf_matvec and nll_grad kernels
-against their plain versions, their dispatch, the serving path with and
-without rbf_matvec, and training through nll_grad.
+"""The port on a CUDA card: the hand-written rbf_matvec, nll_grad and
+cholupdate kernels against their plain versions, their dispatch, the
+serving path with and without rbf_matvec, training through nll_grad, and
+the streaming fleet through cholupdate.
 
 Every test here is marked `gpu` and skips (in its fixture) without a card.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -11,11 +12,14 @@ import pytest
 import torch
 
 from repro_torch.core.consensus import path_graph
-from repro_torch.core.gp import diff2_stack, inner_from_cov, pack
+from repro_torch.core.gp import cov_matrix, diff2_stack, inner_from_cov, pack
+from repro_torch.core.online import refit
 from repro_torch.core.prediction import PredictionEngine
 from repro_torch.core.training import cov_from_cache, train_dec_apx_gp
 from repro_torch.fleet import FleetConfig, GPFleet
+from repro_torch.kernels import cholupdate as C
 from repro_torch.kernels import nll_grad as G
+from repro_torch.kernels import ops
 from repro_torch.kernels import rbf_matvec as K
 from repro_torch.launch import serve_gp
 
@@ -175,3 +179,100 @@ def test_serve_gp_trains_on_the_card(cuda, capsys):
                    "--batch", "128", "--train-iters", "3"])
     out = capsys.readouterr().out
     assert "trained (dec-apx, 3 rounds)" in out and "rbcm: served" in out
+
+
+def _factors(dev, M, n, seed):
+    """Cholesky factors (row-major) of GP covariances of random inputs."""
+    g = torch.Generator(dev).manual_seed(seed)
+    X = 2 * torch.rand(M, n, 2, generator=g, device=dev)
+    lt = pack([1.2, 0.3], 1.3, 0.1, dtype=torch.float32, device=dev)
+    return torch.linalg.cholesky(cov_matrix(X, lt, 1e-8)).contiguous(), g
+
+
+def _rel(got, want):
+    return float(((got - want).abs().amax((1, 2))
+                  / want.abs().amax((1, 2))).max())
+
+
+@pytest.mark.parametrize("M,n,shift", [(4, 8100, 1), (4, 2049, 0),
+                                       (3, 777, 1), (4, 131, 0), (2, 33, 1),
+                                       (4, 1, 0)])
+def test_cholupdate_kernel_matches_plain(cuda, M, n, shift):
+    """Update (and the eviction with shift=1) within 1e-5 of the plain
+    version relative to max |L'| per agent, upper triangle exactly zero,
+    one wrapper launch; the downdate by the same x brings L back."""
+    L, g = _factors(cuda, M, n, n)
+    x = L[:, :, 0] if shift else 0.5 * torch.randn(M, n, generator=g,
+                                                    device=cuda)
+    before = C.launches
+    got = C.cholupdate(L, x, shift=shift)
+    assert C.launches == before + 1
+    assert _rel(got, C.cholupdate_plain(L, x, shift=shift)) <= REL_TOL
+    assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
+    if not shift:
+        down = C.cholupdate(got, x, downdate=True)
+        assert _rel(down, C.cholupdate_plain(got, x, downdate=True)) \
+            <= REL_TOL
+
+
+def test_cholupdate_zero_x_and_mask_are_bitwise(cuda):
+    L, _ = _factors(cuda, 4, 300, 0)
+    assert torch.equal(C.cholupdate(L, torch.zeros(4, 300, device=cuda)), L)
+    active = torch.tensor([True, False, True, False], device=cuda)
+    got = C.cholupdate(L, L[:, :, 0], shift=1, active=active)
+    assert torch.equal(got[~active], L[~active])
+    want = C.cholupdate_plain(L, L[:, :, 0], shift=1, active=active)
+    assert _rel(got[active], want[active]) <= REL_TOL
+
+
+def test_cholupdate_op_casts_float64_and_the_kernel_refuses_it(cuda):
+    """The op casts a float64 CUDA factor to float32 for the kernel and
+    back; the kernel's wrapper itself takes float32 only."""
+    L, g = _factors(cuda, 2, 64, 1)
+    x = torch.randn(2, 64, generator=g, device=cuda)
+    before = C.launches
+    out = ops.cholupdate_fleet(L.double(), x.double())
+    assert C.launches == before + 1 and out.dtype == torch.float64
+    assert _rel(out, C.cholupdate_plain(L.double(), x.double())) <= 1e-5
+    with pytest.raises(TypeError, match="float32"):
+        C.cholupdate(L.double(), x.double())
+
+
+def test_streaming_fleet_on_the_card(cuda):
+    """GPFleet(online=True) on the card: one cholupdate launch per full
+    observe round, factors within float32 reach of a refit, drift through
+    nll_grad, join/leave, and serving from the swapped factors."""
+    g = torch.Generator(cuda).manual_seed(3)
+    X = 2 * torch.rand(4 * 300 + 4 * 20 + 200, 2, generator=g, device=cuda)
+    y = torch.sin(2 * X[:, 0]) * torch.cos(3 * X[:, 1])
+    Xp, yp = X[:1200].reshape(4, 300, 2), y[:1200].reshape(4, 300)
+    lt = pack([1.2, 0.3], 1.3, 0.1, dtype=torch.float32, device=cuda)
+    fleet = GPFleet(FleetConfig(online=True, window=300, stream_mean=True,
+                                kappa=10_000.0)).fit(Xp, yp, log_theta0=lt,
+                                                     train=False)
+    engine = fleet.engine
+    before = C.launches
+    for r in range(20):
+        fleet.observe(X[1200 + 4 * r:1204 + 4 * r],
+                      y[1200 + 4 * r:1204 + 4 * r])
+    assert C.launches == before + 20
+    st = fleet._online_state
+    ref = refit(st)
+    assert _rel(st.L, ref.L) <= 1e-3
+    mean, var, _ = fleet.predict(X[-200:])
+    assert fleet.engine is engine and engine.fitted.L is st.L
+    assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())
+    before = G.launches
+    fleet.drift(iters=2)
+    assert G.launches == before + 2
+    fleet.join(X[:300], y[:300])
+    fleet.leave(1)
+    mean, _, _ = fleet.predict(X[-200:])
+    assert fleet.num_agents == 4 and bool(torch.isfinite(mean).all())
+
+
+def test_serve_gp_online_on_the_card(cuda, capsys):
+    serve_gp.main(["--agents", "4", "--per-agent", "256", "--requests", "8",
+                   "--batch", "128", "--online", "--observe-every", "2"])
+    out = capsys.readouterr().out
+    assert "online rbcm: served" in out and "factors swapped" in out

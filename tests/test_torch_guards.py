@@ -18,6 +18,7 @@ from repro_torch.core.consensus import path_graph
 from repro_torch.core.prediction import FittedExperts, PredictionEngine
 from repro_torch.fleet import FleetConfig, GPFleet
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import cholupdate as C
 from repro_torch.kernels import nll_grad as G
 from repro_torch.launch import serve_gp
 
@@ -175,3 +176,74 @@ def test_training_defaults_to_the_card(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_gp.main(["--train-iters", "2", "--agents", "2",
                        "--per-agent", "8"])
+
+
+def _meta_cholupdate_inputs(M=3, n=9):
+    meta = dict(device="meta", dtype=torch.float32)
+    return torch.empty(M, n, n, **meta), torch.empty(M, n, **meta)
+
+
+def test_cholupdate_plain_never_takes_a_tensor_off_the_cpu(monkeypatch):
+    """Meta tensors stand in for CUDA tensors: the op sends them to the
+    kernel's launch path (its checks refuse a non-CUDA device), never to
+    the plain version."""
+    def plain(*args, **kw):
+        raise AssertionError("plain version reached from a non-CPU tensor")
+    monkeypatch.setattr(C, "cholupdate_plain", plain)
+    L, x = _meta_cholupdate_inputs()
+    before = C.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.cholupdate_fleet(L, x, shift=1)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.cholupdate(L[0].double(), x[0].double())
+    with pytest.raises(ValueError, match="CUDA device"):
+        C.cholupdate(L, x)
+    assert C.launches == before
+
+
+def test_cholupdate_raises_when_the_loader_fails(monkeypatch):
+    def fail(name):
+        raise RuntimeError("nvcc not found")
+
+    def plain(*args, **kw):
+        raise AssertionError("plain version reached from a non-CPU tensor")
+    monkeypatch.setattr(_build, "load_library", fail)
+    monkeypatch.setattr(C, "cholupdate_plain", plain)
+    monkeypatch.setattr(C, "_check", lambda *args: None)
+    C._library.cache_clear()
+    L, x = _meta_cholupdate_inputs()
+    before = C.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ops.cholupdate_fleet(L, x, shift=1)
+    assert C.launches == before
+    C._library.cache_clear()
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("dtype", "float32"), ("contiguous", "contiguous"), ("shape", "want L"),
+    ("shift", "shift"), ("mask", "active"), ("device", "CUDA device")])
+def test_cholupdate_kernel_input_checks_raise(bad, match):
+    L, x = _meta_cholupdate_inputs()
+    shift, active = 0, None
+    if bad == "dtype":
+        x = x.double()
+    elif bad == "contiguous":
+        L = L.transpose(1, 2)
+    elif bad == "shape":
+        x = torch.empty(3, 8, device="meta")
+    elif bad == "shift":
+        shift = 10
+    elif bad == "mask":
+        active = torch.empty(3, dtype=torch.int32, device="meta")
+    with pytest.raises((ValueError, TypeError), match=match):
+        C._check(L, x, shift, active)
+
+
+def test_online_serving_defaults_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPFleet(FleetConfig(online=True, window=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_gp.main(["--online", "--agents", "2", "--per-agent", "8"])
+    from repro_torch.core.online import OnlineExperts
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OnlineExperts.from_numpy({})

@@ -153,7 +153,8 @@ def test_splits_fill_the_card():
     assert K.splits_for(4096, 40, 810, 132) == 1
 
 
-@pytest.mark.parametrize("module", ["rbf_matvec.py", "ops.py", "nll_grad.py"])
+@pytest.mark.parametrize("module", ["rbf_matvec.py", "ops.py", "nll_grad.py",
+                                    "cholupdate.py"])
 def test_dispatch_has_no_fallback(module):
     """No `try` in the dispatch modules: nothing can catch a kernel failure
     and fall back to the plain version."""
@@ -182,3 +183,24 @@ def test_nll_grad_blocks_fill_the_card():
     assert G.blocks_for(4, 8100, 132) == 528
     assert G.blocks_for(40, 810, 132) == 53
     assert G.blocks_for(4, 1, 132) == 1            # never more than rows
+
+
+def test_cholupdate_build_names_its_tpu_kernel():
+    p = _build.library_path("cholupdate")
+    assert p.parent == _build.BUILD_DIR and p.name.startswith("libcholupdate-")
+    src = (_build.CSRC / "cholupdate.cu").read_text()
+    assert "cholupdate_pallas" in src     # the source names what it replaces
+    assert "fast_math" not in " ".join(_build.NVCC_FLAGS)   # IEEE sqrt, div
+
+
+def test_cholupdate_cpu_path_never_loads_the_library(monkeypatch):
+    from repro_torch.kernels import cholupdate as C
+
+    def fail(name):
+        raise AssertionError("the CPU path must not build or load CUDA code")
+    monkeypatch.setattr(_build, "load_library", fail)
+    C._library.cache_clear()
+    L = torch.linalg.cholesky(torch.eye(5, dtype=torch.float64) * 4)
+    before = C.launches
+    out = ops.cholupdate(L, torch.ones(5, dtype=torch.float64))
+    assert out.dtype == torch.float64 and C.launches == before
