@@ -8,7 +8,9 @@ Phases, one JSON line each:
   build    nvcc-builds every CUDA source of the port (src/repro_torch/
            kernels/csrc/*.cu, all at once) for sm_90a.
   kernels  holds each kernel to its plain PyTorch version on the card, at
-           the main paths' shapes and at ragged/edge shapes, checks that
+           the main paths' shapes and at ragged/edge shapes (rbf_gram at
+           the sparse fit's panel, the 100k fleet's tail panel, a square
+           panel with noise and edge shapes), checks that
            two nll_grad calls are bitwise equal, that a zero x leaves a
            factor bitwise unchanged under cholupdate and that its inactive
            agents come back untouched, and times each kernel, its plain
@@ -50,11 +52,29 @@ Phases, one JSON line each:
            engine object and adjacency survive the stream (factors swapped,
            not rebuilt), and the fleet after join/leave against a fresh
            fleet on the same windows and graph.
+  sparse   sparse pseudo-representation experts (FleetConfig(sparse_m=
+           512)), in three parts. serve: the paper fleet fitted at the
+           true hyperparameters (the Kmn statistics through rbf_gram, one
+           launch per 4,096-column panel for the whole fleet), serving 8
+           rBCM micro-batches of 256 queries and the 4,096-query call, and
+           npae_sparse on 4,096 queries. train: DEC-apx-GP with the
+           collapsed-bound gradient (100 iterations, kappa 10,000) and
+           fact-sparse (200 Adam steps over theta and Z), each then served.
+           scale: the reference's 100k-per-agent fleet (4 x 100,000 points
+           of the same field, m = 512), fitted and served by npae_sparse
+           and rBCM at 256 queries. The runs carry float64 data, with the
+           kernels computing in float32; the 100k fleet is first fitted in
+           float32 and reported without a gate (see SPARSE_F32). It checks
+           the rbf_gram launches of each fit (ceil(Ni / 4,096)), the
+           streamed means of the served queries against the float64 plain
+           path, the RMSE against the field, and reports the factors'
+           bytes against the dense factors'.
 
 With --profile it then traces one 256-query batch of the serving path,
-one ADMM iteration of the training path, and one observe round and one
-served batch of the streaming fleet with torch.profiler and prints device
-time by kernel and the device's busy share.
+one ADMM iteration of the training path, one observe round and one served
+batch of the streaming fleet, one sparse fit of the 100k-per-agent fleet
+and one served rBCM batch of the sparse paper fleet with torch.profiler
+and prints device time by kernel and the device's busy share.
 
 Then it prints the kernel table as one JSON object, the card's name and
 power limit as nvidia-smi reports them, and last
@@ -144,6 +164,34 @@ CHECK_ITERS = 10                      # ADMM iterations held kernel vs plain
 # held to within the float32 plain trajectory's distance from float64:
 # the kernel may move theta no further than float32 arithmetic itself.
 THETA_TOL = 1e-4
+# rbf_gram (M, m, N, D, col0, width, with_noise): the sparse fit's panel
+# (the paper fleet's m = 512 inducing points against a 4,096-column panel),
+# the tail panel of the 100k-per-agent fleet (100,000 = 24 x 4,096 + 1,696:
+# 1,696 valid columns, the rest exactly 0), a square panel with the noise
+# on its diagonal, and edge shapes
+KMN_PANEL = 4096                      # columns per kmn_stats panel
+RBF_GRAM_CASES = [(4, 512, 8100, 2, 0, KMN_PANEL, False),
+                  (4, 512, 100_000, 2, 24 * KMN_PANEL, KMN_PANEL, False),
+                  (1, 1013, 1013, 2, 0, 1013, True),
+                  (3, 97, 777, 3, 0, 777, False),
+                  (2, 64, 555, 8, 0, 555, False),
+                  (4, 1, 7, 2, 0, 7, False)]
+RBF_GRAM_TOL = 1e-5                   # max |error| relative to sigma_f^2
+SPARSE_M = 512                        # inducing points per agent
+# the reference's large sparse fleet (benchmarks/bench_prediction.py
+# :342-344, big_ni=100_000, big_m=512, big_agents=4)
+BIG_NI = 100_000
+SCALE_QUERIES = 256
+FIELD_CHUNK = 50_000                  # points per RFF field evaluation
+# SPARSE_F32: the 100k-per-agent fleet is fitted once in float32 and the
+# outcome reported, without a gate. At m = 512 inducing points per stripe
+# the Kmm Cholesky fails in float32 at the reference's jitter floor
+# (8 eps(float32) sigma_f^2 = 1.6e-6, below the rounding of a 512-point
+# Cholesky of near-duplicate points), in the JAX package as in the port
+# (on a CPU, both packages give NaN factors for this fleet), and so it
+# does for the paper fleet at m = 512. The gated runs carry float64 data:
+# the rbf_gram kernel still computes in float32, and the products and the
+# m x m algebra run in float64, what the reference does under x64.
 
 
 def card_line() -> str:
@@ -276,6 +324,24 @@ def cholupdate_bound_ms(M: int, n: int, shift: int,
             "bytes" if t_bytes > t_ops else "operations", 1e3 * chain)
 
 
+def rbf_gram_bound_ms(M: int, m: int, valid: int, width: int, D: int,
+                      sm_count: int) -> tuple[float, str]:
+    """Least time for one (M, m, width) Gram panel on the card: z and the
+    panel's valid x columns read once, params in, the float32 panel
+    written once, over the memory rate; or per valid element one exp2 on
+    the SFUs and 2D + 2 FP32 flops (D subtracts, D fused multiply-adds,
+    the log2(e) scale, the sigma_f^2 product) over their peak rates,
+    whichever is larger."""
+    elems = M * m * valid
+    bytes_ = 4 * (M * m * D + M * valid * D + 2 + M * m * width)
+    t_bytes = bytes_ / HBM_BYTES_PER_S
+    t_flops = elems * (2 * D + 2) / FP32_FLOPS_PER_S
+    t_exp = elems / (SFU_EXP_PER_CLOCK_PER_SM * sm_count * SM_CLOCK_HZ)
+    t_ops = max(t_flops, t_exp)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                        else "operations")
+
+
 def plain_local_grad(lt, Xi, yi):
     """One agent's cached-geometry NLL gradient with the nll_grad kernel's
     plain version in its place, on whatever device the inputs lie: the
@@ -358,9 +424,103 @@ def phase_kernels(ctx):
                 Nt, M, Ni, D, sms)
             ctx["rbf_matvec"] = case
         cases.append(case)
+    cases.append(sparse_matvec_case(ctx))
     return {"rel_tol": REL_TOL, "rbf_matvec": cases,
             "nll_grad": nll_grad_cases(ctx, sms),
-            "cholupdate": cholupdate_cases(ctx, sms)}
+            "cholupdate": cholupdate_cases(ctx, sms),
+            "rbf_gram_tol": RBF_GRAM_TOL,
+            "rbf_gram": rbf_gram_cases(ctx, sms)}
+
+
+def sparse_matvec_case(ctx):
+    """rbf_matvec against its plain version at the shape the sparse
+    serving path gives it (Nt 256, M 4, Ni = SPARSE_M inducing points, D
+    2), on that path's own inputs: the sparse phase's first query batch,
+    the paper fleet's stride inducing points and the weights c of its
+    float64 sparse fit, cast to float32 as the op casts them."""
+    import torch
+    from repro_torch.core.gp import pack
+    from repro_torch.core.sparse import fit_sparse_experts, select_inducing
+    from repro_torch.kernels import rbf_matvec as K
+    Xp, yp, Xq, _ = paper_data(ctx)
+    lt = pack(*TRUE_THETA, dtype=torch.float64, device=Xp.device)
+    Z = select_inducing(Xp.double(), SPARSE_M)
+    c = fit_sparse_experts(lt, Xp.double(), yp.double(), Z).c
+    ls = torch.exp(lt[:2])
+    a = (Xq[:BATCH].double() / ls).float().contiguous()
+    b = (Z / ls).float().contiguous()
+    v = c.float().contiguous()
+    sf2 = torch.exp(2 * lt[2:3]).float()
+    got = K.rbf_matvec(a, b, v, sf2)
+    want = K.rbf_matvec_plain(a, b, v, sf2)
+    scale = K.rbf_matvec_plain(a, b, v.abs(), sf2)
+    torch.cuda.synchronize()
+    case = {"Nt": BATCH, "M": Xp.shape[0], "Ni": SPARSE_M, "D": 2,
+            "inputs": "sparse fleet's queries, Z and c",
+            "max_rel_err": _rel_err(torch, got, want, scale),
+            "max_abs_err": float((got - want).abs().max())}
+    if not case["max_rel_err"] <= REL_TOL:
+        raise AssertionError(f"rbf_matvec disagrees with its plain version "
+                             f"at the sparse serving shape {case}")
+    return case
+
+
+def rbf_gram_cases(ctx, sms):
+    """rbf_gram against its plain version on the card, max |error| within
+    RBF_GRAM_TOL sigma_f^2: first the sparse fit's panel of the paper fleet
+    (its 512 stride inducing points against the first 4,096 points of each
+    agent, timed, with the composed cdist -> exp as yardstick), then
+    random inputs at the tail panel of the 100k fleet (the columns past N
+    checked exactly 0), a square panel with noise, and edge shapes."""
+    import torch
+    from repro_torch.core.sparse import select_inducing
+    from repro_torch.kernels import rbf_gram as RG
+    dev = torch.device(DEVICE)
+    Xp, _, _, _ = paper_data(ctx)
+    gen = torch.Generator(dev).manual_seed(ctx["seed"] + 6)
+    sf2 = TRUE_THETA[1] ** 2
+    params = torch.tensor([sf2, TRUE_THETA[2] ** 2], device=dev)
+    cases = []
+    for M, m, N, D, col0, width, noise in RBF_GRAM_CASES:
+        ls = (torch.tensor(TRUE_THETA[0], device=dev) if D == 2
+              else torch.full((D,), 0.5, device=dev))
+        if (M, m, N) == (4, SPARSE_M, Xp.shape[1]):
+            x = (Xp / ls).contiguous()
+            z = (select_inducing(Xp, m) / ls).contiguous()
+        else:
+            x = 2 * torch.rand(M, N, D, generator=gen, device=dev) / ls
+            z = x[:, :m].contiguous() if noise else \
+                2 * torch.rand(M, m, D, generator=gen, device=dev) / ls
+        got = RG.rbf_gram(z, x, params, noise, col0, width)
+        want = RG.rbf_gram_plain(z, x, params, noise, col0, width)
+        torch.cuda.synchronize()
+        valid = min(width, N - col0)
+        case = {"M": M, "m": m, "N": N, "D": D, "col0": col0,
+                "width": width, "valid_columns": valid, "with_noise": noise,
+                "max_abs_err": float((got - want).abs().max()),
+                "tail_exactly_zero": bool((got[..., valid:] == 0).all())}
+        if not (case["max_abs_err"] <= RBF_GRAM_TOL * sf2
+                and case["tail_exactly_zero"]):
+            raise AssertionError(f"rbf_gram disagrees with its plain "
+                                 f"version at {case}")
+        if not cases:
+            # library yardstick: no single PyTorch call computes this
+            # function, so the composition cdist -> square -> exp is timed
+            xs = x[:, :width]
+
+            def composed():
+                return sf2 * torch.exp(-torch.cdist(z, xs).square_())
+            case["ms"] = cuda_ms(
+                lambda: RG.rbf_gram(z, x, params, False, col0, width), 200)
+            case["plain_ms"] = cuda_ms(
+                lambda: RG.rbf_gram_plain(z, x, params, False, col0, width),
+                20)
+            case["composed_library_ms"] = cuda_ms(composed, 20)
+            case["bound_ms"], case["bound_by"] = rbf_gram_bound_ms(
+                M, m, valid, width, D, sms)
+            ctx["rbf_gram"] = case
+        cases.append(case)
+    return cases
 
 
 def nll_grad_cases(ctx, sms):
@@ -1005,6 +1165,262 @@ def phase_online(ctx):
             "rmse_vs_field_after_join_leave": rmse_mem}
 
 
+def big_data(ctx):
+    """The reference's 100k-per-agent fleet on the card: 4 x BIG_NI
+    points of the paper field (the same field draw as paper_data, noise
+    sigma_eps), stripe-partitioned, and SCALE_QUERIES held-out queries with
+    their noise-free values. The field is evaluated FIELD_CHUNK points at a
+    time: at once, its (N, 4,096) features would take 6.6 GB twice over.
+    Returns (Xp (4, BIG_NI, 2), yp (4, BIG_NI), Xq, fq), float32."""
+    if "big" not in ctx:
+        import torch
+        from repro_torch.core.gp import stripe_partition
+        from repro_torch.data import random_inputs
+        paper_data(ctx)
+        field, dev = ctx["field"], torch.device(DEVICE)
+        gen = torch.Generator(dev).manual_seed(ctx["seed"] + 5)
+        n = 4 * BIG_NI
+        X = random_inputs(gen, n + SCALE_QUERIES, dtype=torch.float32)
+        f = torch.cat([field(X[i:i + FIELD_CHUNK])
+                       for i in range(0, X.shape[0], FIELD_CHUNK)])
+        y = f + TRUE_THETA[2] * torch.randn(
+            X.shape[0], generator=gen, dtype=torch.float32, device=dev)
+        Xp, yp = stripe_partition(X[:n], y[:n], 4)
+        ctx["big"] = (Xp, yp, X[n:], f[n:])
+    return ctx["big"]
+
+
+def _f32_record(cfg, Xp, yp, lt, Xq, fq):
+    """The float32 run of the 100k fleet, for the record (SPARSE_F32): fit
+    at lt, serve Xq by rBCM, report whether the factors are finite and the
+    RMSE. Not gated; an error on the way (torch.linalg.eigh may refuse a
+    NaN matrix on the card) is reported as it is."""
+    from repro_torch.fleet import GPFleet
+    try:
+        fl = GPFleet(cfg, device=DEVICE).fit(Xp, yp, log_theta0=lt,
+                                             train=False)
+        return {"factors_finite": _finite(fl.fitted),
+                "rmse_vs_field": _rmse(fl.predict(Xq)[0], fq)}
+    except RuntimeError as e:
+        return {"error": f"{type(e).__name__}: {e}"[:300]}
+
+
+def _finite(fitted) -> bool:
+    import torch
+    return all(bool(torch.isfinite(t).all()) for t in fitted)
+
+
+def _rmse(mean, f) -> float:
+    import torch
+    return float(torch.sqrt(((mean.double() - f.double()) ** 2).mean()))
+
+
+def _check_rmse(name, rmse):
+    if not rmse < RMSE_LIMIT:
+        raise AssertionError(f"{name}: RMSE {rmse} against the noise-free "
+                             f"field is not below {RMSE_LIMIT}")
+
+
+def phase_sparse(ctx):
+    import torch
+    from repro_torch.core.gp import pack
+    from repro_torch.core.sparse import (SparseExperts, fit_sparse_experts,
+                                         select_inducing,
+                                         sparse_moments_cached)
+    from repro_torch.fleet import FleetConfig, GPFleet
+    from repro_torch.kernels import rbf_gram as RG
+    from repro_torch.kernels import rbf_matvec as K
+    dev = torch.device(DEVICE)
+    Xp32, yp32, Xq, fq = paper_data(ctx)
+    lt32 = pack(*TRUE_THETA, dtype=torch.float32, device=dev)
+    Xp, yp, lt, Xq64 = Xp32.double(), yp32.double(), lt32.double(), \
+        Xq.double()
+    n_query = N_BATCHES * BATCH + BIG
+    panels = -(-Xp.shape[1] // KMN_PANEL)
+    cfg = FleetConfig(sparse_m=SPARSE_M, stream_mean=True)
+    out = {"sparse_m": SPARSE_M, "kmn_panel": KMN_PANEL}
+
+    # -- serve -------------------------------------------------------------
+    # warm-up: the first float64 fit sets up cuSOLVER's eigh, which the
+    # timed fit should not pay
+    GPFleet(cfg, device=DEVICE).fit(Xp, yp, log_theta0=lt, train=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the sparse serving path: counts reset just before, read just after
+    RG.reset_launches()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    fleet = GPFleet(cfg, device=DEVICE).fit(Xp, yp, log_theta0=lt,
+                                            train=False)
+    torch.cuda.synchronize()
+    fit_ms = 1e3 * (time.perf_counter() - t0)
+    fit_launches = RG.launches
+    if not isinstance(fleet.fitted, SparseExperts) or \
+            not _finite(fleet.fitted):
+        raise AssertionError("the sparse fleet's factors are not finite "
+                             "SparseExperts")
+    if fit_launches != panels:
+        raise AssertionError(f"rbf_gram launched {fit_launches} times for "
+                             f"{panels} panels of the fit")
+    fleet.predict(Xq64[:BATCH])                       # warm-up
+    fleet.predict(Xq64[:BATCH], method="npae_sparse")
+    torch.cuda.synchronize()
+    K.reset_launches()
+    batch_ms, means = [], []
+    t_all = time.perf_counter()
+    for i in range(N_BATCHES):
+        t0 = time.perf_counter()
+        means.append(fleet.predict(Xq64[i * BATCH:(i + 1) * BATCH])[0])
+        torch.cuda.synchronize()
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    means.append(fleet.predict(Xq64[N_BATCHES * BATCH:])[0])
+    torch.cuda.synchronize()
+    big_ms = 1e3 * (time.perf_counter() - t0)
+    total_s = time.perf_counter() - t_all
+    matvec_launches = K.launches
+    t0 = time.perf_counter()
+    npae_mean, npae_var, _ = fleet.predict(Xq64[:BIG], method="npae_sparse")
+    torch.cuda.synchronize()
+    npae_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    mean = torch.cat(means)
+    tiles = N_BATCHES * -(-BATCH // cfg.chunk) + -(-BIG // cfg.chunk)
+    if matvec_launches != tiles:
+        raise AssertionError(f"rbf_matvec launched {matvec_launches} times "
+                             f"for {tiles} query tiles of the sparse fleet")
+    if RG.launches != fit_launches:
+        raise AssertionError("serving launched rbf_gram")
+    # the streamed agent means of the served queries against the float64
+    # plain path (k(Xs, Z) c by einsum), relative to the summed |terms|
+    f = fleet.fitted
+    stream_mu = fleet.engine.posterior_means_streamed(Xq64)
+    plain_mu, _ = sparse_moments_cached(f.log_theta, f.Z, f.Lmm, f.LS, f.c,
+                                        Xq64)
+    terms, _ = sparse_moments_cached(f.log_theta, f.Z, f.Lmm, f.LS,
+                                     f.c.abs(), Xq64)
+    stream_err = _rel_err(torch, stream_mu, plain_mu, terms)
+    if not stream_err <= REL_TOL:
+        raise AssertionError(f"the sparse fleet's streamed means are "
+                             f"{stream_err} from the float64 plain path, "
+                             f"relative to the summed |terms|")
+    if mean.shape != (n_query,) or not bool(torch.isfinite(mean).all()) \
+            or not bool((npae_var > 0).all()):
+        raise AssertionError("sparse served moments are not finite of the "
+                             "expected shape")
+    rmse, rmse_npae = _rmse(mean, fq), _rmse(npae_mean, fq[:BIG])
+    _check_rmse("sparse rbcm", rmse)
+    _check_rmse("npae_sparse", rmse_npae)
+    dense_diff = None
+    if "fleet" in ctx:
+        dense = ctx["fleet"].predict(Xq)[0]
+        dense_diff = float((mean - dense.double()).abs().max())
+    ctx["launches"]["rbf_gram"] = fit_launches
+    ctx["sparse_fleet"] = fleet
+    out["serve"] = {
+        "n_train": N_TRAIN, "agents": cfg.num_agents,
+        "per_agent": int(Xp.shape[1]), "dtype": "float64 data, float32 "
+        "kernel", "fit_ms": fit_ms, "rbf_gram_launches": fit_launches,
+        "panels": panels, "batch_ms": batch_ms,
+        "mean_batch_ms": sum(batch_ms) / len(batch_ms),
+        "big_call_ms": big_ms, "queries_per_s": n_query / total_s,
+        "rbf_matvec_launches": matvec_launches, "query_tiles": tiles,
+        "npae_sparse_4096_ms": npae_ms, "peak_memory_bytes": peak,
+        "rmse_vs_field_rbcm": rmse, "rmse_vs_field_npae_sparse": rmse_npae,
+        "max_rel_err_streamed_means_vs_float64_plain": stream_err,
+        "max_abs_rbcm_mean_vs_dense_fleet": dense_diff,
+        "tr_corr": fleet.fitted.tr_corr.tolist()}
+
+    # -- train: dec-apx-sparse and fact-sparse ----------------------------
+    th0 = cfg.theta0
+    lt0 = pack(list(th0[:-2]), th0[-2], th0[-1], dtype=torch.float64,
+               device=dev)
+    for trainer, kw, steps in (
+            ("dec-apx-sparse", dict(kappa=TRAIN_KAPPA), cfg.admm_iters),
+            ("fact-sparse", {}, cfg.fact_steps)):
+        tcfg = cfg.replace(trainer=trainer, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        RG.reset_launches()
+        t0 = time.perf_counter()
+        tf = GPFleet(tcfg, device=DEVICE).fit(Xp, yp, train=True)
+        torch.cuda.synchronize()
+        tfit_ms = 1e3 * (time.perf_counter() - t0)
+        tlaunches = RG.launches
+        t0 = time.perf_counter()
+        fit_sparse_experts(tf.log_theta, Xp, yp, tf.fitted.Z,
+                           jitter=tcfg.jitter)
+        torch.cuda.synchronize()
+        factor_ms = 1e3 * (time.perf_counter() - t0)
+        tmean = tf.predict(Xq64[:BIG])[0]
+        if tlaunches != panels:
+            raise AssertionError(f"{trainer}: rbf_gram launched {tlaunches}"
+                                 f" times for {panels} panels")
+        if not (_finite(tf.fitted) and bool(torch.isfinite(tmean).all())):
+            raise AssertionError(f"{trainer}: non-finite factors or means")
+        trmse = _rmse(tmean, fq[:BIG])
+        _check_rmse(trainer, trmse)
+        out[trainer] = {
+            "steps": steps, "fit_ms": tfit_ms, "factor_fit_ms": factor_ms,
+            "ms_per_step": (tfit_ms - factor_ms) / steps,
+            "rbf_gram_launches": tlaunches,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "theta0": list(th0),
+            "trained_theta": torch.exp(tf.log_theta).tolist(),
+            "rmse_vs_field": trmse}
+        if trainer == "dec-apx-sparse":
+            out[trainer]["final_residual"] = float(
+                tf.train_info["residuals"][-1])
+        else:
+            out[trainer]["bound_first_last"] = [
+                float(tf.train_info["nll"][0]),
+                float(tf.train_info["nll"][-1])]
+            out[trainer]["max_abs_Z_moved"] = float(
+                (tf.fitted.Z - select_inducing(Xp, SPARSE_M)).abs().max())
+        del tf
+
+    # -- scale: the 100k-per-agent fleet ----------------------------------
+    BX32, By32, BXq, Bfq = big_data(ctx)
+    big_panels = -(-BX32.shape[1] // KMN_PANEL)
+    out["scale_f32"] = _f32_record(cfg, BX32, By32, lt32, BXq, Bfq)
+    BX, By, BXq64 = BX32.double(), By32.double(), BXq.double()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    RG.reset_launches()
+    t0 = time.perf_counter()
+    big = GPFleet(cfg, device=DEVICE).fit(BX, By, log_theta0=lt,
+                                          train=False)
+    torch.cuda.synchronize()
+    big_fit_ms = 1e3 * (time.perf_counter() - t0)
+    big_launches = RG.launches
+    if big_launches != big_panels:
+        raise AssertionError(f"rbf_gram launched {big_launches} times for "
+                             f"{big_panels} panels of the 100k fit")
+    if not _finite(big.fitted):
+        raise AssertionError("the 100k fleet's factors are not finite")
+    served = {}
+    for method in ("npae_sparse", "rbcm"):
+        big.predict(BXq64, method=method)            # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bm = big.predict(BXq64, method=method)[0]
+        torch.cuda.synchronize()
+        served[method] = {"ms": 1e3 * (time.perf_counter() - t0),
+                          "rmse_vs_field": _rmse(bm, Bfq)}
+        _check_rmse(f"100k {method}", served[method]["rmse_vs_field"])
+    factor_bytes = sum(t.numel() * t.element_size() for t in big.fitted)
+    ctx["big_fit"] = (BX, By, lt, cfg)
+    out["scale"] = {
+        "agents": 4, "per_agent": BIG_NI, "queries": SCALE_QUERIES,
+        "dtype": "float64 data, float32 kernel", "fit_ms": big_fit_ms,
+        "rbf_gram_launches": big_launches, "panels": big_panels,
+        "served": served, "factor_bytes": factor_bytes,
+        "dense_float32_factor_bytes": 4 * 4 * BIG_NI ** 2,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+        "tr_corr": big.fitted.tr_corr.tolist()}
+    return out
+
+
 def _profiled(fn, port_kernel):
     """Device time by kernel over one call of `fn` (after a warm-up), the
     port kernel's device time and launches, and the device's busy share
@@ -1041,10 +1457,14 @@ def _profiled(fn, port_kernel):
 
 def phase_profile(ctx):
     """One served 256-query batch and one DEC-apx-GP iteration of the
-    training path (from the trained theta), and one observe round and one
-    served batch of the streaming fleet, each traced alone."""
+    training path (from the trained theta), one observe round and one
+    served batch of the streaming fleet, one sparse fit of the 100k fleet
+    and one served rBCM batch of the sparse paper fleet, each traced
+    alone."""
     from repro_torch.core.training import train_dec_apx_gp
+    from repro_torch.fleet import GPFleet
     fleet, Xb = ctx["fleet"], ctx["queries"][:BATCH]
+    sparse, (BX, By, lt, cfg_big) = ctx["sparse_fleet"], ctx["big_fit"]
     Xp, yp, _, _ = paper_data(ctx)
     cfg = fleet.config
     online, (x1, y1) = ctx["online_fleet"], ctx["online_round"]
@@ -1059,7 +1479,12 @@ def phase_profile(ctx):
             "observe_round": _profiled(lambda: online.observe(x1, y1),
                                        "cholupdate"),
             "online_serve_batch": _profiled(lambda: online.predict(Xb),
-                                            "rbf_matvec")}
+                                            "rbf_matvec"),
+            "sparse_fit_100k": _profiled(
+                lambda: GPFleet(cfg_big, device=DEVICE).fit(
+                    BX, By, log_theta0=lt, train=False), "rbf_gram"),
+            "sparse_serve_batch": _profiled(
+                lambda: sparse.predict(Xb.double()), "rbf_matvec")}
 
 
 def main(argv=None) -> int:
@@ -1067,8 +1492,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one served batch, one ADMM "
-                         "iteration and one observe round with "
-                         "torch.profiler")
+                         "iteration, one observe round, one sparse fit "
+                         "and one sparse served batch with torch.profiler")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1087,7 +1512,7 @@ def main(argv=None) -> int:
     failed = []
     phases = [("build", phase_build), ("kernels", phase_kernels),
               ("serve", phase_serve), ("train", phase_train),
-              ("online", phase_online)]
+              ("online", phase_online), ("sparse", phase_sparse)]
     if args.profile:
         phases.append(("profile", phase_profile))
     for name, fn in phases:
@@ -1105,7 +1530,8 @@ def main(argv=None) -> int:
     rows = []
     for name, replaces in (("rbf_matvec", "src/repro/kernels/rbf_matvec.py:46"),
                            ("nll_grad", "src/repro/kernels/nll_grad.py:73"),
-                           ("cholupdate", "src/repro/kernels/cholupdate.py:69")):
+                           ("cholupdate", "src/repro/kernels/cholupdate.py:69"),
+                           ("rbf_gram", "src/repro/kernels/rbf_gram.py:47")):
         k = ctx[name]
         rows.append({
             "name": name, "route": "cuda",

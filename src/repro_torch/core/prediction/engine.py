@@ -9,13 +9,16 @@ Counterpart of `repro.core.prediction.engine` for the DAC family:
   map_query_tiles  — a loop over fixed-size query tiles: peak memory is
                      O(chunk * M * Ni) at any Nt.
   PredictionEngine — serving front-end: poe gpoe bcm rbcm and their
-                     centralized references cen_*. With
+                     centralized references cen_*, from FittedExperts or
+                     from sparse pseudo-representation experts
+                     (core.sparse.SparseExperts, isinstance dispatch), and
+                     npae_sparse, the low-rank NPAE of sparse fleets. With
                      `stream_mean=True` the posterior means ride the fused
                      Gram-matvec kernel (kernels.rbf_matvec), one launch
                      per query tile for the whole fleet. `swap_experts`
                      replaces the served factors of a streaming fleet
-                     (core.online) in place; `rewire` applies a
-                     membership change (new adjacency, new M).
+                     (core.online, dense only) in place; `rewire` applies
+                     a membership change (new adjacency, new M).
 
 PyTorch runs eagerly, so the reference's jit cache and trace counters have
 no counterpart here.
@@ -32,6 +35,8 @@ from . import aggregation as agg
 from .decentralized import (dec_bcm_from_moments, dec_gpoe_from_moments,
                             dec_poe_from_moments, dec_rbcm_from_moments)
 from .local import chol_factors, local_moments_cached, stream_means
+from ..sparse import (SparseExperts, npae_terms_lowrank,
+                      sparse_moments_cached)
 
 
 class FittedExperts(NamedTuple):
@@ -97,20 +102,23 @@ _DAC_CORES = {"poe": dec_poe_from_moments, "gpoe": dec_gpoe_from_moments,
 
 
 class PredictionEngine:
-    """Serving front-end over FittedExperts: query-tiled DAC-family methods.
+    """Serving front-end over FittedExperts or SparseExperts: query-tiled
+    DAC-family methods and the low-rank NPAE.
 
-    Decentralized: poe gpoe bcm rbcm (paper Alg. 5-8).
+    Decentralized: poe gpoe bcm rbcm (paper Alg. 5-8), from dense or
+    sparse factors; npae_sparse from sparse factors only.
     Centralized references: cen_poe cen_gpoe cen_bcm cen_rbcm.
 
     The experts and the adjacency move to `device` (default: cuda) at
     construction; queries are moved there per call.
     """
 
-    METHODS = ("poe", "gpoe", "bcm", "rbcm",
+    METHODS = ("poe", "gpoe", "bcm", "rbcm", "npae_sparse",
                "cen_poe", "cen_gpoe", "cen_bcm", "cen_rbcm")
 
-    def __init__(self, fitted: FittedExperts, A, *, chunk: int = 256,
-                 dac_iters: int = 200, stream_mean: bool = False,
+    def __init__(self, fitted: FittedExperts | SparseExperts, A, *,
+                 chunk: int = 256, dac_iters: int = 200,
+                 stream_mean: bool = False, npae_jitter: float = 1e-6,
                  device=None):
         self.device = resolve_device(device)
         self.fitted = fitted.to(self.device)
@@ -121,6 +129,7 @@ class PredictionEngine:
         self.chunk = int(chunk)
         self.dac_iters = int(dac_iters)
         self.stream_mean = bool(stream_mean)
+        self.npae_jitter = float(npae_jitter)
 
     def _queries(self, Xs):
         """Queries as a tensor on the engine's device in the experts'
@@ -128,11 +137,27 @@ class PredictionEngine:
         return torch.as_tensor(Xs, dtype=self.fitted.Xp.dtype,
                                device=self.device)
 
+    def _moments(self, f, Xq):
+        """Local expert moments (M, Nt) from dense or sparse factors: the
+        isinstance dispatch that lets every PoE/BCM aggregation serve both
+        fleets."""
+        if isinstance(f, SparseExperts):
+            return sparse_moments_cached(f.log_theta, f.Z, f.Lmm, f.LS, f.c,
+                                         Xq, stream_mean=self.stream_mean)
+        return local_moments_cached(f.log_theta, f.Xp, f.L, f.alpha, Xq,
+                                    stream_mean=self.stream_mean)
+
     def _tile(self, method: str, Xq):
         f = self.fitted
-        mu, var = local_moments_cached(f.log_theta, f.Xp, f.L, f.alpha, Xq,
-                                       stream_mean=self.stream_mean)
         pv = f.prior_var
+        if method == "npae_sparse":
+            # low-rank NPAE: the cross-covariance through the pseudo-points,
+            # solved by the same aggregation core as the exact family
+            mu, kA, CA = npae_terms_lowrank(f.log_theta, f.Z, f.Lmm, f.LS,
+                                            f.c, Xq)
+            mean, v = agg.npae(mu, kA, CA, pv, jitter=self.npae_jitter)
+            return {"mean": mean, "var": v}, {}
+        mu, var = self._moments(f, Xq)
         if method in _DAC_CORES:
             mean, v, info = _DAC_CORES[method](mu, var, pv, self.A,
                                                iters=self.dac_iters)
@@ -151,6 +176,12 @@ class PredictionEngine:
         if method not in self.METHODS:
             raise ValueError(f"unknown prediction method {method!r}; "
                              f"one of {self.METHODS}")
+        if method == "npae_sparse" and not isinstance(self.fitted,
+                                                      SparseExperts):
+            raise ValueError(
+                "npae_sparse serves from SparseExperts only — fit with "
+                "FleetConfig(sparse_m=...) (or fit_sparse_experts) to build "
+                "the pseudo-representation factors")
         Xs = self._queries(Xs)
         perq, red = map_query_tiles(lambda Xq: self._tile(method, Xq), Xs,
                                     self.chunk)
@@ -194,6 +225,8 @@ class PredictionEngine:
 
     def posterior_means_streamed(self, Xs):
         """Per-agent streamed posterior means (M, Nt) via the fused
-        Gram-matvec kernel — the O(Ni + Nt) mean-only path."""
+        Gram-matvec kernel — the O(Ni + Nt) mean-only path (O(m + Nt) for
+        sparse experts, whose weights c ride their inducing inputs)."""
         f = self.fitted
-        return stream_means(f.log_theta, f.Xp, f.alpha, self._queries(Xs))
+        w = f.c if isinstance(f, SparseExperts) else f.alpha
+        return stream_means(f.log_theta, f.Xp, w, self._queries(Xs))

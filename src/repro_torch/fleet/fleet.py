@@ -16,6 +16,11 @@ FleetConfig(online=True) the factors are sliding windows (core.online):
     fleet.drift(iters=5)        # retrain on the live windows, refit, swap
     fleet.join(X_new, y_new); fleet.leave(1)   # membership: rewire
 
+With FleetConfig(sparse_m=m) the factors are sparse pseudo-representation
+experts (core.sparse, m inducing points per agent, fitted through the
+rbf_gram kernel), served by the DAC family and `npae_sparse`; the
+`fact-sparse` trainer's optimized inducing inputs are the ones served.
+
 The fleet runs on `device` (default: cuda; raises when no card is present
 and the caller did not pass device="cpu"). Persistence, training traces
 and the sharded engine are not ported yet (ROADMAP queue A).
@@ -30,6 +35,7 @@ from ..core.gp import pack
 from ..core.online import (OnlineExperts, from_batch, join, leave,
                            observe_fleet, refit)
 from ..core.prediction import FittedExperts, PredictionEngine, fit_experts
+from ..core.sparse import SparseExperts, fit_sparse_experts, select_inducing
 from ..device import resolve_device
 from .config import FleetConfig
 from .registry import get_method, get_trainer, validate_config
@@ -70,7 +76,7 @@ class GPFleet:
         self.log_theta = None          # served hyperparameters (K,)
         self.thetas = None             # per-agent hyperparameters (M, K)
         self.train_info = {}           # the trainer's info dict
-        self.fitted: FittedExperts | None = None
+        self.fitted: FittedExperts | SparseExperts | None = None
         self._online_state: OnlineExperts | None = None
         self._engine: PredictionEngine | None = None
 
@@ -96,7 +102,7 @@ class GPFleet:
             self._engine = PredictionEngine(
                 self.fitted, self.A, chunk=cfg.chunk,
                 dac_iters=cfg.dac_iters, stream_mean=cfg.stream_mean,
-                device=self.device)
+                npae_jitter=cfg.npae_jitter, device=self.device)
         return self._engine
 
     def fit(self, Xp, yp, *, log_theta0=None, thetas=None, grad_fn=None,
@@ -152,11 +158,22 @@ class GPFleet:
                                             window=cfg.window,
                                             jitter=cfg.jitter)
             self.fitted = self._online_state.to_fitted()
+        elif cfg.sparse_m is not None:
+            # the fact-sparse trainer optimized the inducing sets: serve
+            # from the Z the bound was tightened over
+            self.fitted = self._fit_sparse(self.log_theta, Xp, yp,
+                                           self.train_info.get("Z"))
         else:
             self.fitted = fit_experts(self.log_theta, Xp, yp,
                                       jitter=cfg.jitter)
         self._engine = None
         return self
+
+    def _fit_sparse(self, lt, Xp, yp, Z=None) -> SparseExperts:
+        cfg = self.config
+        if Z is None:
+            Z = select_inducing(Xp, cfg.sparse_m, cfg.inducing_init)
+        return fit_sparse_experts(lt, Xp, yp, Z, jitter=cfg.jitter)
 
     def predict(self, Xs, method: str | None = None):
         """Serve one query batch -> (mean (Nt,), var (Nt,), info).

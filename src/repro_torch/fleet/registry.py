@@ -5,7 +5,8 @@ this slice of the port runs; every name the reference registers but the
 port does not have yet is rejected with a "not yet ported" error that
 names its ROADMAP item (`get_trainer`, `get_method`, `validate_config`).
 
-  TRAINERS — the ported training loops, each behind a uniform adapter
+  TRAINERS — the ported training loops (SPARSE_TRAINERS among them fit
+  sparse pseudo-representation experts), each behind a uniform adapter
   `spec.run(cfg, log_theta0, Xp, yp, A, grad_fn=None)
       -> (log_theta (K,), thetas (M, K), info)`
   that forwards the FleetConfig's ADMM parameters to the loop unchanged,
@@ -16,6 +17,8 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+from ..core.sparse import (make_sparse_grad, select_inducing,
+                           train_fact_sparse)
 from ..core.training import (train_apx_gp, train_c_gp, train_dec_apx_gp,
                              train_dec_c_gp, train_fact_gp)
 
@@ -59,13 +62,37 @@ def _run_dec_apx(cfg, lt0, Xp, yp, A, grad_fn=None):
     return thetas.mean(0), thetas, info
 
 
+def _run_fact_sparse(cfg, lt0, Xp, yp, A, grad_fn=None):
+    # collapsed-bound FACT counterpart: joint Adam over (theta, Z); the
+    # optimized inducing sets ride info["Z"], so GPFleet caches the sparse
+    # factors from the Z the bound was tightened over
+    Z0 = select_inducing(Xp, cfg.sparse_m, cfg.inducing_init)
+    lt, Z, vals = train_fact_sparse(lt0, Xp, yp, Z0, steps=cfg.fact_steps,
+                                    lr=cfg.fact_lr, jitter=cfg.jitter)
+    return lt, lt.expand(Xp.shape[0], lt.shape[0]), {"nll": vals, "Z": Z}
+
+
+def _run_dec_apx_sparse(cfg, lt0, Xp, yp, A, grad_fn=None):
+    # eq. 34 ADMM with the O(Ni m^2) collapsed-bound local gradient swapped
+    # in through the grad_fn hook
+    if grad_fn is None:
+        grad_fn = make_sparse_grad(cfg.sparse_m, jitter=cfg.jitter)
+    return _run_dec_apx(cfg, lt0, Xp, yp, A, grad_fn=grad_fn)
+
+
 TRAINERS: dict[str, TrainerSpec] = {s.name: s for s in (
     TrainerSpec("fact", _run_fact, "§2.3.1 (FACT-GP baseline)"),
     TrainerSpec("c", _run_c, "eq. 24"),
     TrainerSpec("apx", _run_apx, "eq. 26"),
     TrainerSpec("dec-c", _run_dec_c, "eq. 30"),
     TrainerSpec("dec-apx", _run_dec_apx, "eq. 34 (Thm. 1)"),
+    TrainerSpec("fact-sparse", _run_fact_sparse,
+                "§2.3.1 x Titsias 2009 (collapsed ELBO, joint theta + Z)"),
+    TrainerSpec("dec-apx-sparse", _run_dec_apx_sparse,
+                "eq. 34 with the collapsed-ELBO O(Ni m^2) local gradient"),
 )}
+
+SPARSE_TRAINERS = ("fact-sparse", "dec-apx-sparse")
 
 # trainers the reference registers, with the ROADMAP queue A item that
 # ports them
@@ -73,8 +100,6 @@ _LATER_TRAINERS = {
     "gapx": "ROADMAP queue A item 3 (the grBCM communication dataset)",
     "dec-gapx": "ROADMAP queue A item 3 (the grBCM communication dataset)",
     "dec-apx-sharded": "ROADMAP queue A item 7 (multi-GPU)",
-    "fact-sparse": "ROADMAP queue A item 6 (sparse experts)",
-    "dec-apx-sparse": "ROADMAP queue A item 6 (sparse experts)",
 }
 
 
@@ -97,9 +122,13 @@ def get_trainer(name: str) -> TrainerSpec:
 
 
 class MethodSpec(NamedTuple):
-    """One registered prediction method."""
+    """One registered prediction method. `family` is "dac" or "sparse"
+    (served from sparse pseudo-representation experts only). Every method
+    registered here can serve a sparse_m fleet; the reference's dense-only
+    ones are listed in _DENSE_ONLY."""
     name: str
     paper: str
+    family: str = "dac"
 
 
 METHODS: dict[str, MethodSpec] = {s.name: s for s in (
@@ -107,6 +136,8 @@ METHODS: dict[str, MethodSpec] = {s.name: s for s in (
     MethodSpec("gpoe", "Alg. 6, eq. 12-13"),
     MethodSpec("bcm", "Alg. 7, eq. 14-15"),
     MethodSpec("rbcm", "Alg. 8, eq. 14-15"),
+    MethodSpec("npae_sparse", "Alg. 10 from Titsias low-rank factors "
+               "(core.sparse.lowrank)", family="sparse"),
 )}
 
 # methods the reference registers, with the ROADMAP queue A item that
@@ -115,13 +146,14 @@ _LATER_METHODS = {name: "ROADMAP queue A item 3 (CBNN, grBCM, NPAE)"
                   for name in ("grbcm", "npae", "npae_star", "nn_poe",
                                "nn_gpoe", "nn_bcm", "nn_rbcm", "nn_grbcm",
                                "nn_npae")}
-_LATER_METHODS["npae_sparse"] = "ROADMAP queue A item 6 (sparse experts)"
+# the reference's sparse=False methods: the dense NPAE family needs the
+# cross-Gram blocks of raw training points
+_DENSE_ONLY = ("npae", "npae_star", "nn_npae")
 
 # FleetConfig switches whose subsystems are not ported, by ROADMAP item
 _LATER_SWITCHES = (
     ("sharded", "ROADMAP queue A item 7 (multi-GPU)"),
     ("routed", "ROADMAP queue A item 7 (multi-GPU)"),
-    ("sparse_m", "ROADMAP queue A item 6 (sparse experts)"),
     ("cache_cross", "ROADMAP queue A item 3 (CBNN, grBCM, NPAE)"),
 )
 
@@ -147,16 +179,38 @@ def get_method(name: str) -> MethodSpec:
 
 
 def validate_config(cfg) -> None:
-    """Reject a FleetConfig that names an unknown trainer or method, or
-    asks for a method or switch that is not yet ported. A trainer the
-    reference has but the port does not yet is rejected when a fit trains
-    (`get_trainer`), so such a config still serves known
-    hyperparameters."""
+    """Reject a FleetConfig that names an unknown trainer or method, asks
+    for a method or switch that is not yet ported, or breaks one of the
+    reference's sparse rules: the sparse trainers and npae_sparse need
+    sparse_m, a sparse_m fleet serves no dense-only method, and sparse_m
+    and online exclude each other. A trainer the reference has but the
+    port does not yet is rejected when a fit trains (`get_trainer`), so
+    such a config still serves known hyperparameters."""
     if cfg.trainer not in TRAINERS and cfg.trainer not in _LATER_TRAINERS:
         raise KeyError(f"unknown trainer {cfg.trainer!r}; registered "
                        f"trainers: {sorted(TRAINERS)}")
-    get_method(cfg.method)
+    if cfg.sparse_m is not None and cfg.method in _DENSE_ONLY:
+        raise ValueError(
+            f"method {cfg.method!r} needs the dense O(Ni) per-agent "
+            f"factors and cannot serve from sparse pseudo-representation "
+            f"experts (sparse_m={cfg.sparse_m}); sparse-capable methods: "
+            f"{sorted(METHODS)}")
+    spec = get_method(cfg.method)
     for field, item in _LATER_SWITCHES:
         if getattr(cfg, field) not in (False, None):
             raise ValueError(f"FleetConfig({field}={getattr(cfg, field)!r}) "
                              f"is not yet ported to repro_torch ({item})")
+    if cfg.trainer in SPARSE_TRAINERS and cfg.sparse_m is None:
+        raise ValueError(
+            f"trainer {cfg.trainer!r} fits sparse pseudo-representation "
+            f"experts and needs the per-agent inducing count: set "
+            f"FleetConfig(sparse_m=...)")
+    if spec.family == "sparse" and cfg.sparse_m is None:
+        raise ValueError(
+            f"method {cfg.method!r} serves from sparse pseudo-"
+            f"representation experts; set FleetConfig(sparse_m=...)")
+    if cfg.sparse_m is not None and cfg.online:
+        raise ValueError(
+            "sparse_m and online are mutually exclusive: the sliding-"
+            "window path maintains dense rank-1 Cholesky updates, not "
+            "inducing-point statistics")

@@ -5,6 +5,8 @@
                   kernel repro/kernels/rbf_matvec.py:rbf_matvec_pallas)
   nll_grad.py     launch wrapper of csrc/nll_grad.cu (replaces the Pallas
                   kernel repro/kernels/nll_grad.py:nll_grad_pallas)
+  rbf_gram.py     launch wrapper of csrc/rbf_gram.cu (replaces the Pallas
+                  kernel repro/kernels/rbf_gram.py:rbf_gram_pallas)
   cholupdate.py   launch wrapper of csrc/cholupdate.cu (replaces the Pallas
                   kernel repro/kernels/cholupdate.py:cholupdate_pallas)
   ops.py          public ops with the reference's signatures

@@ -1,11 +1,13 @@
 """Public kernel ops with the reference's signatures (repro.kernels.ops).
 
 The CUDA path computes in float32 like the reference's Pallas path
-(repro/kernels/ops.py: rbf_matvec and nll_grad_fused cast their operands
-to float32); the CPU path keeps the input dtype like the reference's jnp
-path. rbf_matvec's callers cast the result back to their query dtype
-(core.prediction.local.stream_means); nll_grad_fused returns d2u's dtype;
-cholupdate returns L's dtype, as the reference's does.
+(repro/kernels/ops.py: rbf_gram, rbf_matvec and nll_grad_fused cast
+their operands to float32); the CPU path keeps the input dtype like the
+reference's jnp path. rbf_gram returns float32 on the card, as the
+reference's Pallas path does; kmn_stats promotes each panel to X's dtype
+before its products; rbf_matvec's callers cast the result back to their
+query dtype (core.prediction.local.stream_means); nll_grad_fused returns
+d2u's dtype; cholupdate returns L's dtype, as the reference's does.
 """
 from __future__ import annotations
 
@@ -13,7 +15,79 @@ import torch
 
 from . import cholupdate as _cholupdate
 from . import nll_grad as _nll_grad
+from . import rbf_gram as _rbf_gram
 from . import rbf_matvec as _rbf_matvec
+
+
+def _gram_operands(Z, X, lengthscales, sigma_f, noise):
+    """Inputs pre-scaled by 1/lengthscale and params (sigma_f^2, noise^2),
+    cast to float32 and made contiguous on the card."""
+    a = Z / lengthscales
+    b = X / lengthscales
+    params = torch.stack([torch.as_tensor(sigma_f, dtype=a.dtype,
+                                          device=a.device) ** 2,
+                          torch.as_tensor(noise, dtype=a.dtype,
+                                          device=a.device) ** 2])
+    if a.device.type != "cpu":
+        a, b, params = (t.to(torch.float32).contiguous()
+                        for t in (a, b, params))
+    return a, b, params
+
+
+def rbf_gram_agents(Z, X, lengthscales, sigma_f, noise=0.0,
+                    with_noise: bool = False):
+    """Every agent's k(Z_a, X_a) in one kernel call -> (M, m, N).
+
+    Z (M, m, D), X (M, N, D); `with_noise` adds noise^2 where the row index
+    equals the column index (the square case)."""
+    a, b, params = _gram_operands(Z, X, lengthscales, sigma_f, noise)
+    return _rbf_gram.rbf_gram(a, b, params, with_noise)
+
+
+def rbf_gram(x1, x2, lengthscales, sigma_f, noise=0.0,
+             with_noise: bool = False):
+    """Public RBF Gram op. x1 (N, D), x2 (M, D) -> (N, M).
+
+    Signature of the reference's `ops.rbf_gram`; `with_noise=True` adds
+    noise^2 on the global diagonal (square case)."""
+    return rbf_gram_agents(x1[None], x2[None], lengthscales, sigma_f, noise,
+                           with_noise)[0]
+
+
+def kmn_stats_agents(Z, X, y, lengthscales, sigma_f, bn: int = 4096):
+    """Blocked Titsias statistics of every agent, B = Kmn Knm (M, m, m)
+    and b = Kmn y (M, m), for Kmn = k(Z_a, X_a) — the one O(N) pass of a
+    sparse-expert fit (core.sparse.fit_sparse_experts).
+
+    X (M, N, D) is streamed one (M, m, bn) panel at a time, one rbf_gram
+    launch per panel for the whole fleet, so transient memory is O(M m bn)
+    at any N. The tail panel's columns past N are exactly 0 and y is
+    zero-padded there, so they contribute to neither statistic (the
+    reference multiplies its padded panel by zero weights). Each panel is
+    promoted to X's dtype before the two products, which accumulate in X's
+    dtype."""
+    M, N, _ = X.shape
+    m = Z.shape[1]
+    bn = min(bn, max(1, N))
+    a, b, params = _gram_operands(Z, X, lengthscales, sigma_f, 0.0)
+    yb = torch.nn.functional.pad(y.to(X.dtype), (0, (-N) % bn))
+    B = torch.zeros((M, m, m), dtype=X.dtype, device=X.device)
+    bvec = torch.zeros((M, m, 1), dtype=X.dtype, device=X.device)
+    for j0 in range(0, N, bn):
+        Kb = _rbf_gram.rbf_gram(a, b, params, col0=j0, width=bn).to(X.dtype)
+        B.baddbmm_(Kb, Kb.mT)
+        bvec.baddbmm_(Kb, yb[:, j0:j0 + bn, None])
+    return B, bvec[..., 0]
+
+
+def kmn_stats(Z, X, y, lengthscales, sigma_f, bn: int = 4096):
+    """Blocked Titsias statistics of one agent -> (B (m, m), b (m,)).
+
+    Signature of the reference's `ops.kmn_stats`: Z (m, D), X (N, D),
+    y (N,)."""
+    B, b = kmn_stats_agents(Z[None], X[None], y[None], lengthscales, sigma_f,
+                            bn)
+    return B[0], b[0]
 
 
 def rbf_matvec_agents(Xs, Xp, alpha, lengthscales, sigma_f):

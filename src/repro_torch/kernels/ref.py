@@ -24,6 +24,13 @@ def rbf_gram_ref(x1, x2, lengthscales, sigma_f, noise: float = 0.0):
     return K
 
 
+def kmn_stats_ref(Z, X, y, lengthscales, sigma_f):
+    """Titsias statistics (B = Kmn Knm, b = Kmn y) through the materialized
+    Kmn = k(Z, X) (m, N)."""
+    Kmn = rbf_gram_ref(Z, X, lengthscales, sigma_f)
+    return Kmn @ Kmn.T, Kmn @ y
+
+
 def rbf_matvec_ref(x1, x2, v, lengthscales, sigma_f):
     """k(X1, X2) @ v through the materialized Gram."""
     return rbf_gram_ref(x1, x2, lengthscales, sigma_f) @ v

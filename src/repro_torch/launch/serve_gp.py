@@ -14,6 +14,8 @@ coalesce ragged requests into fixed-size micro-batches, serve them through
       --trainer dec-apx --train-iters 5 --agents 4 --per-agent 64
   PYTHONPATH=src python -m repro_torch.launch.serve_gp --device cpu \
       --online --observe-every 4 --agents 4 --per-agent 64
+  PYTHONPATH=src python -m repro_torch.launch.serve_gp --device cpu \
+      --sparse-m 32 --method npae-sparse --agents 4 --per-agent 256
 
 `--online` is the streaming front door (the reference's serve_online):
 the fleet keeps one sliding window per agent (FleetConfig(online=True)),
@@ -23,8 +25,21 @@ factor updates on the hand-written cholupdate kernel, swapped into the
 engine in place). It prints q/s and obs/s and checks that the engine and
 its adjacency survived the stream and serve the streamed factors.
 
-It runs on the card unless `--device cpu` is given, in float32 with the
-streamed mean (the hand-written rbf_matvec kernel) unless `--no-stream`.
+`--sparse-m M` fits sparse pseudo-representation experts with M inducing
+points per agent (FleetConfig(sparse_m=M), the Kmn statistics on the
+hand-written rbf_gram kernel) instead of the dense factors; it is what the
+sparse trainers and the method npae-sparse need.
+
+It runs on the card unless `--device cpu` is given, with the streamed
+mean (the hand-written rbf_matvec kernel) unless `--no-stream`, on
+float32 data unless `--dtype float64` is given, as the reference runs in
+float32 unless x64 is enabled. A sparse fleet with a few hundred inducing
+points per agent needs float64: there the inducing points' Gram matrix is
+singular to float32 and the sparse fit's Cholesky fails, in the reference
+as here. The kernels compute in float32 either way.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_gp --sparse-m 512 \
+      --method npae-sparse --agents 4 --per-agent 8100 --dtype float64
 """
 from __future__ import annotations
 
@@ -161,6 +176,21 @@ def main(argv=None):
     ap.add_argument("--observe-every", type=int, default=4,
                     help="fleet-wide observations ingested between "
                          "prediction micro-batches (online mode)")
+    ap.add_argument("--sparse-m", type=int, default=None, metavar="M",
+                    help="per-agent inducing count: fit/serve sparse "
+                         "pseudo-representation experts (core.sparse) "
+                         "instead of the dense O(Ni^2) factors; required "
+                         "by the sparse trainers and method npae-sparse")
+    ap.add_argument("--inducing-init", default="stride",
+                    choices=("stride", "random"),
+                    help="inducing-point initialization for --sparse-m "
+                         "fleets")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "float64"),
+                    help="data and factor dtype (the kernels compute in "
+                         "float32 either way, as the reference does under "
+                         "x64); float64 for --sparse-m in the hundreds, "
+                         "where a float32 Kmm Cholesky fails")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
@@ -177,28 +207,33 @@ def main(argv=None):
                       stream_mean=not args.no_stream, trainer=args.trainer,
                       admm_iters=args.train_iters or FleetConfig.admm_iters,
                       fact_steps=args.train_iters or FleetConfig.fact_steps,
-                      online=args.online)
+                      online=args.online, sparse_m=args.sparse_m,
+                      inducing_init=args.inducing_init)
     device = resolve_device(args.device)
     gen = torch.Generator(device).manual_seed(0)
 
     t0 = time.perf_counter()
-    Xp, yp = build_data(gen, args.agents, args.per_agent)
+    dtype = getattr(torch, args.dtype)
+    Xp, yp = build_data(gen, args.agents, args.per_agent, dtype)
     # the synthetic-fleet launcher always starts from the TRUE theta:
     # --train-iters 0 serves it directly, N runs the trainer from there
     fleet = GPFleet(cfg, device=device).fit(
-        Xp, yp, log_theta0=pack(*_TRUE_THETA), train=bool(args.train_iters))
+        Xp, yp, log_theta0=pack(*_TRUE_THETA, dtype=dtype),
+        train=bool(args.train_iters))
     _sync(device)
     trained = (f"trained ({args.trainer}, {args.train_iters} rounds) and "
                if args.train_iters else "")
+    sparse = (f", sparse m={fleet.fitted.Z.shape[1]}"
+              if args.sparse_m is not None else "")
     print(f"fleet: M={args.agents} agents x Ni={args.per_agent} points "
-          f"(replicated, {device}); {trained}fitted in "
-          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+          f"(replicated{sparse}, {args.dtype}, {device}); {trained}"
+          f"fitted in {(time.perf_counter() - t0) * 1e3:.1f} ms")
     if args.train_iters:
         theta = torch.exp(fleet.log_theta).tolist()
         print("trained theta (l_1..l_D, sigma_f, sigma_eps): "
               + ", ".join(f"{t:.4f}" for t in theta))
 
-    requests = request_stream(gen, args.requests, args.batch)
+    requests = request_stream(gen, args.requests, args.batch, dtype)
     batches, total, slices = micro_batches(requests, args.batch)
     print(f"queue: {args.requests} requests, {total} queries "
           f"-> {batches.shape[0]} micro-batches of {args.batch}")

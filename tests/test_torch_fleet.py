@@ -92,18 +92,26 @@ def test_fleet_float32_follows_the_inputs(data):
 
 
 def test_fit_with_training_is_not_ported(data):
-    """Training is ported (tests/test_torch_training.py); what is not yet
-    is the trainers that need the grBCM communication dataset, the sharded
-    loop, the sparse trainers and the training trace."""
+    """Training is ported (tests/test_torch_training.py, the sparse
+    trainers in tests/test_torch_sparse.py); what is not yet is the
+    trainers that need the grBCM communication dataset, the sharded loop
+    and the training trace. The sparse trainers need sparse_m, as the
+    reference's rule says, and train with it."""
     Xp, yp, _ = data
     for trainer, item in (("gapx", "item 3"), ("dec-gapx", "item 3"),
-                          ("dec-apx-sharded", "item 7"),
-                          ("fact-sparse", "item 6"),
-                          ("dec-apx-sparse", "item 6")):
+                          ("dec-apx-sharded", "item 7")):
         fleet = GPFleet(FleetConfig(trainer=trainer), device="cpu")
         with pytest.raises(ValueError, match=f"not yet ported.*{item}"):
             fleet.fit(Xp, yp)
         fleet.fit(Xp, yp, train=False)            # serving known theta works
+    for trainer in ("fact-sparse", "dec-apx-sparse"):
+        with pytest.raises(ValueError, match="needs the per-agent inducing"):
+            GPFleet(FleetConfig(trainer=trainer), device="cpu")
+        fleet = GPFleet(FleetConfig(trainer=trainer, sparse_m=8,
+                                    admm_iters=2, fact_steps=2),
+                        device="cpu").fit(Xp, yp, log_theta0=LOG_THETA)
+        assert fleet.fitted.Z.shape == (4, 8, 2)
+        assert bool(torch.isfinite(fleet.predict(data[2])[0]).all())
     with pytest.raises(NotImplementedError, match="not yet ported.*item 4"):
         GPFleet(FleetConfig(), device="cpu").fit(Xp, yp, trace=object())
 
@@ -120,14 +128,16 @@ def test_fleet_shape_errors(data):
 @pytest.mark.parametrize("kw,err,match", [
     (dict(method="npae"), ValueError, "not yet ported"),
     (dict(method="nn_rbcm"), ValueError, "item 3"),
-    (dict(method="npae-sparse"), ValueError, "item 6"),
+    (dict(method="npae-sparse"), ValueError, "sparse_m"),
     (dict(method="nope"), KeyError, "unknown prediction method"),
     (dict(trainer="nope"), KeyError, "unknown trainer"),
     (dict(sharded=True), ValueError, "item 7"),
-    (dict(sparse_m=8), ValueError, "item 6"),
+    (dict(sparse_m=8, online=True), ValueError, "mutually exclusive"),
     (dict(cache_cross=True), ValueError, "not yet ported"),
 ])
 def test_validate_config_rejects_what_is_not_ported(kw, err, match):
+    """What is not yet ported, what is unknown, and the reference's sparse
+    rules (npae_sparse without sparse_m; sparse_m with online)."""
     with pytest.raises(err, match=match):
         validate_config(FleetConfig(**kw))
     with pytest.raises(err, match=match):
@@ -201,8 +211,10 @@ def test_online_fleet_observe_drift_join_leave_matches_reference(data,
 
 
 def test_registry_serves_the_dac_family():
-    assert sorted(METHODS) == ["bcm", "gpoe", "poe", "rbcm"]
+    """The DAC family, and npae_sparse for sparse fleets."""
+    assert sorted(METHODS) == ["bcm", "gpoe", "npae_sparse", "poe", "rbcm"]
     assert get_method("rbcm").paper == "Alg. 8, eq. 14-15"
+    assert get_method("npae-sparse").family == "sparse"
 
 
 def test_serve_gp_runs_on_the_cpu(capsys):

@@ -1,7 +1,8 @@
-"""The port on a CUDA card: the hand-written rbf_matvec, nll_grad and
-cholupdate kernels against their plain versions, their dispatch, the
-serving path with and without rbf_matvec, training through nll_grad, and
-the streaming fleet through cholupdate.
+"""The port on a CUDA card: the hand-written rbf_matvec, nll_grad,
+cholupdate and rbf_gram kernels against their plain versions, their
+dispatch, the serving path with and without rbf_matvec, training through
+nll_grad, the streaming fleet through cholupdate, and the sparse fleet's
+fit through rbf_gram.
 
 Every test here is marked `gpu` and skips (in its fixture) without a card.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -19,6 +20,7 @@ from repro_torch.core.training import cov_from_cache, train_dec_apx_gp
 from repro_torch.fleet import FleetConfig, GPFleet
 from repro_torch.kernels import cholupdate as C
 from repro_torch.kernels import nll_grad as G
+from repro_torch.kernels import rbf_gram as RG
 from repro_torch.kernels import ops
 from repro_torch.kernels import rbf_matvec as K
 from repro_torch.launch import serve_gp
@@ -36,7 +38,7 @@ def cuda():
 
 
 @pytest.mark.parametrize("Nt,M,Ni,D", [(256, 4, 8100, 2), (131, 4, 8099, 2),
-                                       (97, 3, 777, 3), (256, 2, 555, 8),
+                                       (256, 4, 512, 2), (97, 3, 777, 3), (256, 2, 555, 8),
                                        (64, 2, 300, 11), (256, 40, 810, 2),
                                        (1, 1, 1, 1)])
 def test_kernel_matches_plain(cuda, Nt, M, Ni, D):
@@ -276,3 +278,67 @@ def test_serve_gp_online_on_the_card(cuda, capsys):
                    "--batch", "128", "--online", "--observe-every", "2"])
     out = capsys.readouterr().out
     assert "online rbcm: served" in out and "factors swapped" in out
+
+
+@pytest.mark.parametrize("M,m,N,D,col0,width,noise", [
+    (4, 512, 8100, 2, 0, 4096, False), (4, 512, 100_000, 2, 98_304, 4096,
+                                        False),
+    (1, 1013, 1013, 2, 0, 1013, True), (3, 97, 777, 3, 0, 777, False),
+    (2, 64, 555, 8, 0, 555, False), (4, 1, 7, 2, 0, 7, False),
+    (2, 40, 300, 11, 0, 300, False)])
+def test_rbf_gram_kernel_matches_plain(cuda, M, m, N, D, col0, width, noise):
+    """The shapes of chip_smoke.py's kernels phase (and D = 11 on the
+    generic path): max |error| within 1e-5 sigma_f^2 of the float64 plain
+    version, the columns past N exactly 0."""
+    g = torch.Generator(cuda).manual_seed(m + N)
+    x = 3 * torch.rand(M, N, D, generator=g, device=cuda)
+    z = x[:, :m].contiguous() if noise else \
+        3 * torch.rand(M, m, D, generator=g, device=cuda)
+    params = torch.tensor([1.69, 0.01], device=cuda)
+    before = RG.launches
+    got = RG.rbf_gram(z, x, params, noise, col0, width)
+    assert RG.launches == before + 1
+    want = RG.rbf_gram_plain(z.double(), x.double(), params.double(), noise,
+                             col0, width)
+    valid = min(width, N - col0)
+    assert got.shape == (M, m, width) and got.dtype == torch.float32
+    assert float((got.double() - want).abs().max()) <= 1e-5 * 1.69
+    assert bool((got[..., valid:] == 0).all())
+
+
+def test_rbf_gram_kernel_raises_on_cuda_float64(cuda):
+    z = torch.rand(2, 5, 2, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        RG.rbf_gram(z, z, torch.ones(2, device=cuda, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sparse_fit_launches_rbf_gram_once_per_panel(cuda, dtype):
+    """GPFleet(sparse_m=...) with no device given runs on the card: one
+    rbf_gram launch per 4,096-column panel for the whole fleet
+    (ceil(5,000 / 4,096) = 2), and serves rBCM and npae_sparse. m = 16
+    keeps Kmm well conditioned, so float32 holds too (at m = 512 on the
+    paper fleet it does not: chip_smoke.py's SPARSE_F32)."""
+    g = torch.Generator(cuda).manual_seed(3)
+    X = 2 * torch.rand(4 * 5000 + 300, 2, generator=g, device=cuda,
+                       dtype=dtype)
+    Xp = X[:20000][torch.argsort(X[:20000, 0])].reshape(4, 5000, 2)
+    yp = (torch.sin(2 * Xp[..., 0]) * torch.cos(3 * Xp[..., 1]))
+    lt = pack([1.2, 0.3], 1.3, 0.1, dtype=dtype, device=cuda)
+    before = RG.launches
+    fleet = GPFleet(FleetConfig(sparse_m=16, stream_mean=True)).fit(
+        Xp, yp, log_theta0=lt, train=False)
+    assert fleet.device.type == "cuda" and RG.launches == before + 2
+    for method in ("rbcm", "npae_sparse"):
+        mean, var, _ = fleet.predict(X[-300:], method=method)
+        assert mean.dtype == dtype and bool(torch.isfinite(mean).all())
+        assert bool((var > 0).all())
+    assert RG.launches == before + 2
+
+
+def test_serve_gp_sparse_on_the_card(cuda, capsys):
+    serve_gp.main(["--agents", "4", "--per-agent", "512", "--requests", "8",
+                   "--batch", "128", "--sparse-m", "32", "--method",
+                   "npae-sparse"])
+    out = capsys.readouterr().out
+    assert "sparse m=32" in out and "npae_sparse: served" in out

@@ -20,6 +20,7 @@ from repro_torch.fleet import FleetConfig, GPFleet
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import cholupdate as C
 from repro_torch.kernels import nll_grad as G
+from repro_torch.kernels import rbf_gram as RG
 from repro_torch.launch import serve_gp
 
 torch.set_num_threads(2)
@@ -153,11 +154,16 @@ def test_nll_grad_kernel_input_checks_raise(bad, match):
 
 @pytest.mark.parametrize("trainer,item", [
     ("gapx", "item 3"), ("dec-gapx", "item 3"), ("dec-apx-sharded", "item 7"),
-    ("fact-sparse", "item 6"), ("dec-apx-sparse", "item 6")])
+    ("fact-sparse", None), ("dec-apx-sparse", None)])
 def test_unported_trainers_say_not_yet_ported(trainer, item):
+    """The trainers still to port say so and name their ROADMAP item; the
+    sparse trainers are ported and registered."""
     from repro_torch.fleet import get_trainer
-    with pytest.raises(ValueError, match=f"not yet ported.*{item}"):
-        get_trainer(trainer)
+    if item is None:
+        assert get_trainer(trainer).name == trainer
+    else:
+        with pytest.raises(ValueError, match=f"not yet ported.*{item}"):
+            get_trainer(trainer)
     with pytest.raises(KeyError, match="unknown trainer"):
         get_trainer("nope")
 
@@ -247,3 +253,77 @@ def test_online_serving_defaults_to_the_card(no_card):
     from repro_torch.core.online import OnlineExperts
     with pytest.raises(RuntimeError, match="device='cpu'"):
         OnlineExperts.from_numpy({})
+
+
+def _meta_rbf_gram_inputs(M=3, m=5, N=9, D=2):
+    meta = dict(device="meta", dtype=torch.float32)
+    return (torch.empty(M, m, D, **meta), torch.empty(M, N, D, **meta),
+            torch.empty(M, N, **meta))
+
+
+def test_rbf_gram_plain_never_takes_a_tensor_off_the_cpu(monkeypatch):
+    """Meta tensors stand in for CUDA tensors: the ops and the sparse fit
+    send them to the kernel's launch path (its checks refuse a non-CUDA
+    device), never to the plain version."""
+    from repro_torch.core.sparse import fit_sparse_experts
+
+    def plain(*args, **kw):
+        raise AssertionError("plain version reached from a non-CPU tensor")
+    monkeypatch.setattr(RG, "rbf_gram_plain", plain)
+    Z, X, y = _meta_rbf_gram_inputs()
+    ls = torch.ones(2, device="meta")
+    before = RG.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.kmn_stats_agents(Z, X, y, ls, 1.0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.rbf_gram(Z[0].double(), X[0].double(), ls.double(), 1.0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fit_sparse_experts(torch.zeros(4, device="meta"), X, y, Z)
+    assert RG.launches == before
+
+
+def test_rbf_gram_raises_when_the_loader_fails(monkeypatch):
+    def fail(name):
+        raise RuntimeError("nvcc not found")
+
+    def plain(*args, **kw):
+        raise AssertionError("plain version reached from a non-CPU tensor")
+    monkeypatch.setattr(_build, "load_library", fail)
+    monkeypatch.setattr(RG, "rbf_gram_plain", plain)
+    monkeypatch.setattr(RG, "_check", lambda *args: None)
+    RG._library.cache_clear()
+    Z, X, _ = _meta_rbf_gram_inputs()
+    before = RG.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ops.rbf_gram_agents(Z, X, torch.ones(2, device="meta"), 1.0)
+    assert RG.launches == before
+    RG._library.cache_clear()
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("dtype", "float32"), ("contiguous", "contiguous"), ("shape", "want z"),
+    ("col0", "col0"), ("params", "params"), ("device", "CUDA device")])
+def test_rbf_gram_kernel_input_checks_raise(bad, match):
+    Z, X, _ = _meta_rbf_gram_inputs()
+    params = torch.empty(2, device="meta")
+    col0, width = 0, 9
+    if bad == "dtype":
+        X = X.double()
+    elif bad == "contiguous":
+        Z = torch.empty(3, 2, 5, device="meta").transpose(1, 2)
+    elif bad == "shape":
+        X = torch.empty(3, 9, 3, device="meta")
+    elif bad == "col0":
+        col0 = 10
+    elif bad == "params":
+        params = torch.empty(1, device="meta")
+    with pytest.raises((ValueError, TypeError), match=match):
+        RG._check(Z, X, params, col0, width)
+
+
+def test_sparse_serving_defaults_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPFleet(FleetConfig(sparse_m=8, method="npae_sparse"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_gp.main(["--sparse-m", "4", "--agents", "2",
+                       "--per-agent", "8"])

@@ -1,7 +1,8 @@
-"""The port's rbf_matvec kernel module on the CPU: its plain version against
-the JAX package's oracle and Pallas kernel (interpret mode), the batched
-op against per-agent calls, and the dispatch rule — a CPU tensor takes the
-plain version, any other tensor goes to the CUDA kernel or raises.
+"""The port's rbf_matvec and rbf_gram kernel modules on the CPU: their plain
+versions against the JAX package's oracle and Pallas kernel (interpret
+mode), the batched ops against per-agent calls, and the dispatch rule — a
+CPU tensor takes the plain version, any other tensor goes to the CUDA
+kernel or raises.
 
 The kernel itself runs only on a card: tests/test_torch_gpu.py holds it to
 the plain version there.
@@ -19,6 +20,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import nll_grad as G
+from repro_torch.kernels import rbf_gram as RG
 from repro_torch.kernels import rbf_matvec as K
 
 torch.set_num_threads(2)
@@ -154,7 +156,7 @@ def test_splits_fill_the_card():
 
 
 @pytest.mark.parametrize("module", ["rbf_matvec.py", "ops.py", "nll_grad.py",
-                                    "cholupdate.py"])
+                                    "cholupdate.py", "rbf_gram.py"])
 def test_dispatch_has_no_fallback(module):
     """No `try` in the dispatch modules: nothing can catch a kernel failure
     and fall back to the plain version."""
@@ -204,3 +206,89 @@ def test_cholupdate_cpu_path_never_loads_the_library(monkeypatch):
     before = C.launches
     out = ops.cholupdate(L, torch.ones(5, dtype=torch.float64))
     assert out.dtype == torch.float64 and C.launches == before
+
+
+@pytest.mark.parametrize("with_noise", [False, True])
+@pytest.mark.parametrize("n,m,d", [(100, 100, 2), (256, 300, 3), (77, 77, 5),
+                                   (1, 1, 1)])
+def test_rbf_gram_f32_matches_pallas_interpret(n, m, d, with_noise):
+    """float32 plain version (direct differences) vs the reference's Pallas
+    kernel in interpret mode (the expansion ||a||^2 + ||b||^2 - 2ab, which
+    cancels to about |a|^2 eps(float32) = 1e-6 in d2 at these scaled
+    inputs): 1e-5 relative to sigma_f^2 + noise^2, the largest entry."""
+    x1, x2, _, ls, sf = _inputs(n, m, d, seed=3, dtype=np.float32)
+    if with_noise:                     # the square case
+        x2, m = x1, n
+    noise = np.float32(0.3)
+    got = ops.rbf_gram(torch.from_numpy(x1), torch.from_numpy(x2),
+                       torch.from_numpy(ls), torch.tensor(sf), noise,
+                       with_noise=with_noise)
+    assert got.dtype == torch.float32 and got.shape == (n, m)
+    want = jops.rbf_gram(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(ls),
+                         sf, noise, with_noise=with_noise, use_pallas=True,
+                         interpret=True)
+    scale = sf ** 2 + (noise ** 2 if with_noise else 0.0)
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("with_noise", [False, True])
+def test_rbf_gram_f64_matches_reference_oracle(with_noise):
+    """float64 op vs the reference's oracle ref.rbf_gram_ref and the port's
+    own: the direct differences and the expansion differ by rounding only,
+    1e-12 relative to the largest entry."""
+    x1, x2, _, ls, sf = _inputs(90, 90, 2, seed=4)
+    x2 = x1 if with_noise else x2
+    noise = 0.2 if with_noise else 0.0
+    got = ops.rbf_gram(torch.from_numpy(x1), torch.from_numpy(x2),
+                       torch.from_numpy(ls), sf, noise, with_noise=with_noise)
+    assert got.dtype == torch.float64
+    want = jref.rbf_gram_ref(jnp.asarray(x1), jnp.asarray(x2),
+                             jnp.asarray(ls), sf, noise)
+    assert _rel(got, want) <= 1e-12
+    own = ref.rbf_gram_ref(torch.from_numpy(x1), torch.from_numpy(x2),
+                           torch.from_numpy(ls), sf, noise)
+    assert _rel(got, own) <= 1e-12
+
+
+def test_rbf_gram_panels_and_the_zero_tail():
+    """Column panels of the kernel's wrapper tile the fleet op's whole
+    Gram; a panel that runs past an agent's N points is exactly 0 there,
+    and the global diagonal of with_noise follows the panel's column
+    offset."""
+    rng = np.random.default_rng(7)
+    Z = torch.from_numpy(rng.normal(size=(3, 11, 2)))
+    X = torch.from_numpy(rng.normal(size=(3, 29, 2)))
+    ls, sf = torch.tensor([0.7, 1.1], dtype=torch.float64), 1.3
+    full = ops.rbf_gram_agents(Z, X, ls, sf)
+    assert full.shape == (3, 11, 29)
+    params = torch.tensor([sf ** 2, 0.25], dtype=torch.float64)
+    for col0 in (0, 8, 16, 24):
+        panel = RG.rbf_gram(Z / ls, X / ls, params, col0=col0, width=8)
+        valid = min(8, 29 - col0)
+        assert torch.equal(panel[..., :valid], full[..., col0:col0 + valid])
+        assert bool((panel[..., valid:] == 0).all())
+    Zs = (X[:, :11] / ls).contiguous()
+    diff = RG.rbf_gram(Zs, X / ls, params, True, 8, 8) \
+        - RG.rbf_gram(Zs, X / ls, params, False, 8, 8)
+    assert torch.allclose(diff[:, 8, 0], torch.full((3,), 0.25,
+                                                    dtype=torch.float64))
+    assert int((diff != 0).sum()) == 3 * 3       # rows 8, 9, 10
+
+
+def test_rbf_gram_cpu_path_never_loads_the_library(monkeypatch):
+    def fail(name):
+        raise AssertionError("the CPU path must not build or load CUDA code")
+    monkeypatch.setattr(_build, "load_library", fail)
+    RG._library.cache_clear()
+    before = RG.launches
+    out = ops.kmn_stats(torch.rand(4, 2), torch.rand(9, 2), torch.rand(9),
+                        torch.ones(2), 1.0, bn=4)
+    assert out[0].shape == (4, 4) and RG.launches == before
+
+
+def test_rbf_gram_build_names_its_tpu_kernel():
+    p = _build.library_path("rbf_gram")
+    assert p.parent == _build.BUILD_DIR and p.name.startswith("librbf_gram-")
+    src = (_build.CSRC / "rbf_gram.cu").read_text()
+    assert "rbf_gram_pallas" in src      # the source names what it replaces
+    assert "exp2f" in src and "atomic" not in src
