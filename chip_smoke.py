@@ -69,12 +69,33 @@ Phases, one JSON line each:
            streamed means of the served queries against the float64 plain
            path, the RMSE against the field, and reports the factors'
            bytes against the dense factors'.
+  lm       LM serving: internlm2-1.8b at its published widths and depth
+           (24 layers, d 2,048, 16 query / 8 KV heads, vocab 92,544,
+           1.89 B float32 parameters drawn from the seed) through the
+           port's serve launcher: batched prefill of 4 prompts of 2,048
+           tokens, then 32 greedy decode steps. It checks flash_attention
+           launched once per layer in the prefill and never in decode,
+           the prefill logits against the same model with the kernel's
+           plain version swapped in (LM_LOGIT_TOL), the greedy tokens
+           equal to that run's wherever its top-2 logit gap exceeds the
+           tolerance, and prefill + one decode step against the parallel
+           forward over 2,049 tokens; it reports prefill ms, decode ms per
+           step, tok/s, peak device memory and the first tokens.
 
-With --profile it then traces one 256-query batch of the serving path,
-one ADMM iteration of the training path, one observe round and one served
-batch of the streaming fleet, one sparse fit of the 100k-per-agent fleet
-and one served rBCM batch of the sparse paper fleet with torch.profiler
-and prints device time by kernel and the device's busy share.
+The kernels phase also holds flash_attention to its plain version at the
+prefill shape (4, 16/8, 2,048, 128, causal; timed, with PyTorch's
+scaled_dot_product_attention as the library yardstick, which the port
+never calls), a sliding window of 512 whose first key blocks are wholly
+masked for the late queries, bf16, ragged S = 1,000, the decode shape
+(Sq 1, Sk 2,081), D = 64 and D = 32, each bitwise repeatable.
+
+With --profile it then traces one 256-query batch of the serving path
+and the serving path's dense fit, one ADMM iteration of the training
+path, one observe round and one served batch of the streaming fleet, one
+sparse fit of the 100k-per-agent fleet, one served rBCM batch of the
+sparse paper fleet, and one LM prefill and one decode step with
+torch.profiler, and prints device time by kernel, the GEMMs' share and
+the device's busy share.
 
 Then it prints the kernel table as one JSON object, the card's name and
 power limit as nvidia-smi reports them, and last
@@ -192,6 +213,34 @@ FIELD_CHUNK = 50_000                  # points per RFF field evaluation
 # does for the paper fleet at m = 512. The gated runs carry float64 data:
 # the rbf_gram kernel still computes in float32, and the products and the
 # m x m algebra run in float64, what the reference does under x64.
+# LM serving (lm phase): the smallest LM configuration of the repo that
+# runs flash_attention at full width (head_dim 128), served at its
+# published widths and depth in float32, as the reference initializes it
+LM_ARCH = "internlm2-1.8b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+# kernel vs plain-attention prefill logits, and prefill + decode vs the
+# parallel forward, max |error| relative to max |logit|: the kernel's
+# float32 attention differs from the plain version's by rounding (about
+# 1e-6 of its output, FLASH_TOL below), which 24 layers of float32 GEMMs
+# carry to the logits; decode runs other GEMM shapes and the plain
+# decode attention
+LM_LOGIT_TOL = 1e-4
+BF16_TC_FLOPS_PER_S = 989e12          # NVIDIA data sheet, dense tensor cores
+# flash_attention (B, H, KH, Sq, Sk, D, causal, window, dtype): the
+# prefill shape first (timed), a sliding window whose first key blocks
+# are wholly masked for the late queries, bf16 at the prefill shape
+# (timed), ragged S, the decode shape, D = 64 and D = 32
+FLASH_CASES = [(4, 16, 8, 2048, 2048, 128, True, None, "float32"),
+               (1, 16, 8, 2048, 2048, 128, True, 512, "float32"),
+               (4, 16, 8, 2048, 2048, 128, True, None, "bfloat16"),
+               (1, 16, 8, 1000, 1000, 128, True, None, "float32"),
+               (4, 16, 8, 1, 2081, 128, True, None, "float32"),
+               (2, 16, 8, 1024, 1024, 64, True, None, "float32"),
+               (2, 16, 8, 777, 777, 32, True, 100, "float32")]
+# max |kernel - plain| relative to max |plain output|: float32 sums in
+# another order (the tolerance the reference's tests hold its Pallas
+# kernel to), bf16 outputs rounded to 8 bits
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def card_line() -> str:
@@ -342,6 +391,97 @@ def rbf_gram_bound_ms(M: int, m: int, valid: int, width: int, D: int,
                                         else "operations")
 
 
+def flash_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask admits, queries right-aligned."""
+    import torch
+    q_pos = torch.arange(Sq, dtype=torch.int64) + (Sk - Sq)
+    hi = q_pos.clamp(max=Sk - 1) if causal else torch.full_like(q_pos,
+                                                                  Sk - 1)
+    lo = (q_pos - window + 1).clamp(min=0) if window else \
+        torch.zeros_like(q_pos)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def flash_bound_ms(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
+                   causal: bool, window, dtype: str,
+                   sm_count: int) -> tuple[float, str, float]:
+    """Least time for the attention on the card: q, k, v read once and o
+    written once over the memory rate; or the two products, 4 D flops per
+    admitted (query, key) pair and head, over the peak rate of the
+    inputs' type (float32 FMA on the CUDA cores, bf16 on the tensor
+    cores), with one SFU exp2 per admitted pair, whichever is larger.
+    Also returns the bound of the same work in bf16 on the tensor cores."""
+    pairs = B * H * flash_pairs(Sq, Sk, causal, window)
+    elems = 2 * B * H * Sq * D + 2 * B * KH * Sk * D
+    size = 4 if dtype == "float32" else 2
+    t_bytes = size * elems / HBM_BYTES_PER_S
+    rate = FP32_FLOPS_PER_S if dtype == "float32" else BF16_TC_FLOPS_PER_S
+    t_exp = pairs / (SFU_EXP_PER_CLOCK_PER_SM * sm_count * SM_CLOCK_HZ)
+    t_ops = max(4 * D * pairs / rate, t_exp)
+    t_tc = max(4 * D * pairs / BF16_TC_FLOPS_PER_S, t_exp,
+               2 * elems / HBM_BYTES_PER_S)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations", 1e3 * t_tc)
+
+
+def flash_attention_cases(ctx, sms):
+    """flash_attention against its plain version on the card at
+    FLASH_CASES (random normal q, k, v), max |error| within FLASH_TOL of
+    max |plain output|, bitwise repeatable and finite; the prefill shape,
+    float32 and bf16, timed against the plain version, PyTorch's
+    scaled_dot_product_attention (causal, GQA) and the bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as F
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(ctx["seed"] + 7)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = []
+    for B, H, KH, Sq, Sk, D, causal, window, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn(B, H, Sq, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, KH, Sk, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, KH, Sk, D, generator=gen, device=dev).to(dtype)
+        got = F.flash_attention(q, k, v, causal, window)
+        again = F.flash_attention(q, k, v, causal, window)
+        want = F.flash_attention_plain(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        case = {"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk, "D": D,
+                "causal": causal, "window": window, "dtype": dt,
+                "max_abs_err": err, "max_rel_err": err / scale,
+                "bitwise_repeatable": bool(torch.equal(got, again)),
+                "finite": bool(torch.isfinite(got).all())}
+        if not (err <= FLASH_TOL[dt] * scale and case["finite"]
+                and case["bitwise_repeatable"]):
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version, is not finite or not "
+                                 f"repeatable at {case}")
+        del want
+        if (B, H, KH, Sq, Sk, D, causal, window) == FLASH_CASES[0][:8]:
+            # the library yardstick: one PyTorch call, never made by the
+            # port
+            case["ms"] = cuda_ms(
+                lambda: F.flash_attention(q, k, v, causal, window), 20)
+            case["plain_ms"] = cuda_ms(
+                lambda: F.flash_attention_plain(q, k, v, causal, window), 5)
+            case["library_ms"] = cuda_ms(
+                lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20)
+            case["library_call"] = ("scaled_dot_product_attention("
+                                    "is_causal=True, enable_gqa=True)")
+            (case["bound_ms"], case["bound_by"],
+             case["bf16_tensor_core_bound_ms"]) = flash_bound_ms(
+                 B, H, KH, Sq, Sk, D, causal, window, dt, sms)
+            case["admitted_pairs_per_head"] = flash_pairs(Sq, Sk, causal,
+                                                          window)
+            if dt == "float32":
+                ctx["flash_attention"] = case
+        cases.append(case)
+        del q, k, v, got, again
+    torch.cuda.empty_cache()
+    return cases
+
+
 def plain_local_grad(lt, Xi, yi):
     """One agent's cached-geometry NLL gradient with the nll_grad kernel's
     plain version in its place, on whatever device the inputs lie: the
@@ -429,7 +569,9 @@ def phase_kernels(ctx):
             "nll_grad": nll_grad_cases(ctx, sms),
             "cholupdate": cholupdate_cases(ctx, sms),
             "rbf_gram_tol": RBF_GRAM_TOL,
-            "rbf_gram": rbf_gram_cases(ctx, sms)}
+            "rbf_gram": rbf_gram_cases(ctx, sms),
+            "flash_tol": FLASH_TOL,
+            "flash_attention": flash_attention_cases(ctx, sms)}
 
 
 def sparse_matvec_case(ctx):
@@ -1421,10 +1563,120 @@ def phase_sparse(ctx):
     return out
 
 
+def plain_attention(q, k, v, causal=True, window=None, scale=None):
+    """ops.flash_attention's signature with the kernel's plain version in
+    its place, on whatever device the inputs lie: the attention hook that
+    the lm phase holds the kernel path against."""
+    from repro_torch.kernels import flash_attention as F
+    return F.flash_attention_plain(q, k, v, causal, window, scale)
+
+
+def phase_lm(ctx):
+    import torch
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.launch import serve, steps
+    from repro_torch.models.lm import param_count
+    dev = torch.device(DEVICE)
+    args = serve.parse_args(
+        ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+         str(LM_PROMPT), "--gen", str(LM_GEN), "--seed", str(ctx["seed"]),
+         "--device", DEVICE])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)     # earlier phases' fleets
+
+    # the LM serving path, through the launcher: counts reset just
+    # before, read just after
+    F.reset_launches()
+    t0 = time.perf_counter()
+    cold = serve.run(args)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = F.launches
+    model, prompts = cold["model"], cold["prompts"]
+    cfg = model.cfg
+    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    if (launches, cold["prefill_launches"], cold["decode_launches"]) != \
+            (cfg.num_layers, cfg.num_layers, 0):
+        raise AssertionError(f"flash_attention launched {launches} times: "
+                             f"{cold['prefill_launches']} in the prefill, "
+                             f"{cold['decode_launches']} in decode, for "
+                             f"{cfg.num_layers} layers")
+
+    # the same requests again, warm: the reported times
+    torch.cuda.reset_peak_memory_stats(dev)
+    warm = serve.generate(model, prompts, G)
+    peak = torch.cuda.max_memory_allocated(dev)
+    logits, tokens = warm["prefill_logits"], warm["tokens"]
+    if logits.shape != (B, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()) or \
+            tokens.shape != (B, G) or \
+            not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError("prefill logits or tokens are not finite of "
+                             "the expected shape")
+
+    # the same model with the kernel's plain version in the prefill
+    plain = serve.generate(model, prompts, G, attention=plain_attention)
+    scale = float(plain["prefill_logits"].abs().max())
+    logit_err = float((logits - plain["prefill_logits"]).abs().max()) / scale
+    # greedy tokens: equal up to the first step where they differ, and
+    # there the plain run's top-2 gap must be within the tolerance
+    same = (tokens == plain["tokens"]).cpu()
+    agree = []
+    for b in range(B):
+        n = int(same[b].long().cumprod(0).sum())
+        agree.append(n)
+        if n < G and float(plain["gaps"][b, n]) > LM_LOGIT_TOL * scale:
+            raise AssertionError(f"sequence {b}: greedy tokens differ at "
+                                 f"step {n} where the top-2 gap is "
+                                 f"{float(plain['gaps'][b, n])}")
+    if not logit_err <= LM_LOGIT_TOL:
+        raise AssertionError(f"prefill logits with the kernel vs its plain "
+                             f"version: {logit_err} > {LM_LOGIT_TOL}")
+
+    # prefill + one decode step against the parallel forward over P + 1
+    _, cache = steps.make_prefill_step(cfg, P + 2)(model, prompts)
+    ld, _ = steps.make_decode_step(cfg)(model, cache, prompts[:, :1])
+    del cache
+    with torch.no_grad():
+        lf, _, _ = model(torch.cat([prompts, prompts[:, :1]], 1),
+                         logits_slice=1)
+    decode_err = float((ld[:, -1] - lf[:, -1]).abs().max()) / \
+        float(lf.abs().max())
+    if not decode_err <= LM_LOGIT_TOL:
+        raise AssertionError(f"prefill + decode vs the parallel forward: "
+                             f"{decode_err} > {LM_LOGIT_TOL}")
+    ctx["launches"]["flash_attention"] = launches
+    ctx["lm"] = (model, prompts)
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "heads": cfg.num_heads,
+            "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+            "vocab": cfg.vocab_size, "parameters": param_count(cfg),
+            "dtype": "float32", "batch": B, "prompt_len": P, "gen": G,
+            "cold_run_s": cold_s, "cold_prefill_ms": 1e3 * cold["prefill_s"],
+            "prefill_ms": 1e3 * warm["prefill_s"],
+            "prefill_tokens_per_s": B * P / warm["prefill_s"],
+            "decode_ms_per_step": 1e3 * warm["decode_s"] / G,
+            "decode_tokens_per_s": B * G / warm["decode_s"],
+            "peak_memory_bytes": peak - held,
+            "memory_held_by_earlier_phases_bytes": held,
+            "flash_attention_launches_prefill": cold["prefill_launches"],
+            "flash_attention_launches_decode": cold["decode_launches"],
+            "logit_tol": LM_LOGIT_TOL,
+            "max_rel_err_logits_vs_plain": logit_err,
+            "max_rel_err_decode_vs_parallel": decode_err,
+            "greedy_steps_equal_to_plain": agree,
+            "warm_tokens_equal_cold": bool(torch.equal(tokens,
+                                                       cold["tokens"])),
+            "min_top2_gap": float(warm["gaps"].min()),
+            "first_tokens": tokens[:, :8].tolist()}
+
+
 def _profiled(fn, port_kernel):
     """Device time by kernel over one call of `fn` (after a warm-up), the
-    port kernel's device time and launches, and the device's busy share
-    of the call's wall time (one stream: kernels do not overlap)."""
+    port kernel's device time and launches, the matrix products' device
+    time (cuBLAS/CUTLASS GEMM kernels, by name), and the device's busy
+    share of the call's wall time (one stream: kernels do not overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1446,9 +1698,12 @@ def _profiled(fn, port_kernel):
     busy_us = sum(us for us, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     port = [(us, n) for k, (us, n) in by_kernel.items() if port_kernel in k]
+    gemm = [us for k, (us, _) in by_kernel.items()
+            if re.search(r"gemm|xmma|cutlass", k, re.IGNORECASE)]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             f"{port_kernel}_device_ms": sum(us for us, _ in port) / 1e3,
             f"{port_kernel}_device_launches": sum(n for _, n in port),
+            "gemm_device_ms": sum(gemm) / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us,
             "kernels_launched": sum(n for _, n in by_kernel.values()),
             "top_kernels": [{"name": k[:120], "ms": us / 1e3, "count": n}
@@ -1456,13 +1711,19 @@ def _profiled(fn, port_kernel):
 
 
 def phase_profile(ctx):
-    """One served 256-query batch and one DEC-apx-GP iteration of the
-    training path (from the trained theta), one observe round and one
-    served batch of the streaming fleet, one sparse fit of the 100k fleet
-    and one served rBCM batch of the sparse paper fleet, each traced
-    alone."""
+    """One served 256-query batch and the dense fit of the serving path,
+    one DEC-apx-GP iteration of the training path (from the trained
+    theta), one observe round and one served batch of the streaming fleet,
+    one sparse fit of the 100k fleet, one served rBCM batch of the sparse
+    paper fleet, and one LM prefill and one decode step (over the prefill's
+    cache, rewritten in place at the same slot), each traced alone."""
     from repro_torch.core.training import train_dec_apx_gp
     from repro_torch.fleet import GPFleet
+    from repro_torch.launch import steps
+    model, prompts = ctx["lm"]
+    prefill = steps.make_prefill_step(model.cfg, LM_PROMPT + 2)
+    decode = steps.make_decode_step(model.cfg)
+    _, cache = prefill(model, prompts)
     fleet, Xb = ctx["fleet"], ctx["queries"][:BATCH]
     sparse, (BX, By, lt, cfg_big) = ctx["sparse_fleet"], ctx["big_fit"]
     Xp, yp, _, _ = paper_data(ctx)
@@ -1484,16 +1745,25 @@ def phase_profile(ctx):
                 lambda: GPFleet(cfg_big, device=DEVICE).fit(
                     BX, By, log_theta0=lt, train=False), "rbf_gram"),
             "sparse_serve_batch": _profiled(
-                lambda: sparse.predict(Xb.double()), "rbf_matvec")}
+                lambda: sparse.predict(Xb.double()), "rbf_matvec"),
+            "serve_fit": _profiled(
+                lambda: GPFleet(cfg, device=DEVICE).fit(
+                    Xp, yp, log_theta0=fleet.fitted.log_theta, train=False),
+                "potrf"),
+            "lm_prefill": _profiled(lambda: prefill(model, prompts),
+                                    "flash_fwd"),
+            "lm_decode_step": _profiled(
+                lambda: decode(model, cache, prompts[:, :1]), "flash_fwd")}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one served batch, one ADMM "
-                         "iteration, one observe round, one sparse fit "
-                         "and one sparse served batch with torch.profiler")
+                    help="also trace one served batch and the serve "
+                         "fit, one ADMM iteration, one observe round, one "
+                         "sparse fit, one sparse served batch, one LM "
+                         "prefill and one decode step with torch.profiler")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1512,7 +1782,8 @@ def main(argv=None) -> int:
     failed = []
     phases = [("build", phase_build), ("kernels", phase_kernels),
               ("serve", phase_serve), ("train", phase_train),
-              ("online", phase_online), ("sparse", phase_sparse)]
+              ("online", phase_online), ("sparse", phase_sparse),
+              ("lm", phase_lm)]
     if args.profile:
         phases.append(("profile", phase_profile))
     for name, fn in phases:
@@ -1531,7 +1802,9 @@ def main(argv=None) -> int:
     for name, replaces in (("rbf_matvec", "src/repro/kernels/rbf_matvec.py:46"),
                            ("nll_grad", "src/repro/kernels/nll_grad.py:73"),
                            ("cholupdate", "src/repro/kernels/cholupdate.py:69"),
-                           ("rbf_gram", "src/repro/kernels/rbf_gram.py:47")):
+                           ("rbf_gram", "src/repro/kernels/rbf_gram.py:47"),
+                           ("flash_attention",
+                            "src/repro/kernels/flash_attention.py:72")):
         k = ctx[name]
         rows.append({
             "name": name, "route": "cuda",
@@ -1539,7 +1812,8 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": ctx["launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None})
+            "bound_by": k["bound_by"],
+            "library_ms": k.get("library_ms")})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,6 +9,10 @@
                   kernel repro/kernels/rbf_gram.py:rbf_gram_pallas)
   cholupdate.py   launch wrapper of csrc/cholupdate.cu (replaces the Pallas
                   kernel repro/kernels/cholupdate.py:cholupdate_pallas)
+  flash_attention.py
+                  launch wrapper of csrc/flash_attention.cu (replaces the
+                  Pallas kernel repro/kernels/flash_attention.py:
+                  flash_attention_pallas)
   ops.py          public ops with the reference's signatures
   _build.py       nvcc build of csrc/*.cu and the ctypes loader
 

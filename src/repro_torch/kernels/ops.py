@@ -8,12 +8,15 @@ reference's Pallas path does; kmn_stats promotes each panel to X's dtype
 before its products; rbf_matvec's callers cast the result back to their
 query dtype (core.prediction.local.stream_means); nll_grad_fused returns
 d2u's dtype; cholupdate returns L's dtype, as the reference's does.
+flash_attention computes in float32 on both paths and returns q's dtype,
+as both of the reference's paths do.
 """
 from __future__ import annotations
 
 import torch
 
 from . import cholupdate as _cholupdate
+from . import flash_attention as _flash
 from . import nll_grad as _nll_grad
 from . import rbf_gram as _rbf_gram
 from . import rbf_matvec as _rbf_matvec
@@ -174,3 +177,18 @@ def cholupdate(L, x, downdate: bool = False, shift: int = 0):
     Signature of the reference's `ops.cholupdate`: L (n, n) lower
     triangular, x (n,)."""
     return cholupdate_fleet(L[None], x[None], downdate, shift)[0]
+
+
+def flash_attention(q, k, v, causal: bool = True, window=None, scale=None):
+    """Public attention op. q (B, H, Sq, D), k/v (B, KH, Sk, D) ->
+    (B, H, Sq, D) in q's dtype, queries right-aligned to the key timeline.
+
+    Signature of the reference's `ops.flash_attention` less its execution
+    options (`use_pallas`, `interpret`, block sizes): the tensor's device
+    decides. A CPU tensor takes the plain version; a CUDA tensor goes to
+    the hand-written kernel, made contiguous here, which masks its own
+    ragged edges (the reference's op picks divisor block sizes instead)."""
+    if q.device.type == "cpu":
+        return _flash.flash_attention_plain(q, k, v, causal, window, scale)
+    return _flash.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal, window, scale)

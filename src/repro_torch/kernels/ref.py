@@ -31,6 +31,36 @@ def kmn_stats_ref(Z, X, y, lengthscales, sigma_f):
     return Kmn @ Kmn.T, Kmn @ y
 
 
+def flash_attention_ref(q, k, v, causal: bool = True, scale=None,
+                        window=None):
+    """Reference attention. q (B,H,Sq,D), k/v (B,KH,Sk,D) with H % KH == 0.
+
+    `window` enables sliding-window attention (keys within `window`
+    positions behind the query). Query positions are right-aligned to the
+    key timeline (decode: Sq=1 attends to the full cache). Materializes the
+    repeated k/v and the logits, computes in float32 and returns q's dtype,
+    which is what the reference's Pallas kernel and chunked jnp path return.
+    """
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    g = H // KH
+    if scale is None:
+        scale = 1.0 / D ** 0.5
+    k = torch.repeat_interleave(k.to(torch.float32), g, dim=1)
+    v = torch.repeat_interleave(v.to(torch.float32), g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), k) * scale
+    q_pos = torch.arange(Sq, device=q.device) + (Sk - Sq)
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v).to(q.dtype)
+
+
 def rbf_matvec_ref(x1, x2, v, lengthscales, sigma_f):
     """k(X1, X2) @ v through the materialized Gram."""
     return rbf_gram_ref(x1, x2, lengthscales, sigma_f) @ v

@@ -1,8 +1,9 @@
 """The port on a CUDA card: the hand-written rbf_matvec, nll_grad,
-cholupdate and rbf_gram kernels against their plain versions, their
-dispatch, the serving path with and without rbf_matvec, training through
-nll_grad, the streaming fleet through cholupdate, and the sparse fleet's
-fit through rbf_gram.
+cholupdate, rbf_gram and flash_attention kernels against their plain
+versions, their dispatch, the serving path with and without rbf_matvec,
+training through nll_grad, the streaming fleet through cholupdate, the
+sparse fleet's fit through rbf_gram, and LM serving through
+flash_attention.
 
 Every test here is marked `gpu` and skips (in its fixture) without a card.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -19,6 +20,7 @@ from repro_torch.core.prediction import PredictionEngine
 from repro_torch.core.training import cov_from_cache, train_dec_apx_gp
 from repro_torch.fleet import FleetConfig, GPFleet
 from repro_torch.kernels import cholupdate as C
+from repro_torch.kernels import flash_attention as F
 from repro_torch.kernels import nll_grad as G
 from repro_torch.kernels import rbf_gram as RG
 from repro_torch.kernels import ops
@@ -342,3 +344,94 @@ def test_serve_gp_sparse_on_the_card(cuda, capsys):
                    "npae-sparse"])
     out = capsys.readouterr().out
     assert "sparse m=32" in out and "npae_sparse: served" in out
+
+
+# flash_attention (B, H, KH, Sq, Sk, D, causal, window, dtype): the
+# prefill of internlm2-1.8b, a sliding window whose first key blocks are
+# wholly masked for the late queries, bf16, ragged S, the decode shape,
+# D = 64 and D = 32, not causal, Sq < Sk ragged
+FLASH_CASES = [
+    (4, 16, 8, 2048, 2048, 128, True, None, torch.float32),
+    (1, 16, 8, 2048, 2048, 128, True, 512, torch.float32),
+    (2, 16, 8, 1024, 1024, 128, True, None, torch.bfloat16),
+    (1, 16, 8, 1000, 1000, 128, True, None, torch.float32),
+    (4, 16, 8, 1, 2081, 128, True, None, torch.float32),
+    (2, 8, 4, 777, 777, 64, True, None, torch.float32),
+    (1, 4, 1, 203, 203, 32, True, 50, torch.float32),
+    (1, 4, 2, 130, 130, 64, False, None, torch.float32),
+    (2, 4, 2, 65, 300, 32, True, None, torch.bfloat16)]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal,window,dtype", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, B, H, KH, Sq, Sk, D,
+                                              causal, window, dtype):
+    """Max |error| within FLASH_TOL of max |plain output|; one launch per
+    call; two calls bitwise equal; finite everywhere."""
+    g = torch.Generator(cuda).manual_seed(Sq + D)
+    q = torch.randn(B, H, Sq, D, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, KH, Sk, D, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, KH, Sk, D, generator=g, device=cuda).to(dtype)
+    before = F.launches
+    got = F.flash_attention(q, k, v, causal, window)
+    again = F.flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert F.launches == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    want = F.flash_attention_plain(q, k, v, causal, window).float()
+    err = float((got.float() - want).abs().max())
+    assert err <= FLASH_TOL[dtype] * float(want.abs().max())
+
+
+def test_flash_attention_kernel_refuses_float16_and_sq_above_sk(cuda):
+    q = torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        F.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 9, 64, device=cuda)
+    kv = torch.zeros(1, 2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="no admitted key"):
+        ops.flash_attention(q, kv, kv)
+
+
+def test_lm_serves_through_flash_attention_on_the_card(cuda):
+    """Reduced internlm2-1.8b: one kernel launch per layer in the prefill
+    and none in decode; the prefill logits against the same model with
+    the plain version swapped in; prefill + one decode step against the
+    parallel forward over P + 1 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import LM
+    cfg = get_config("internlm2-1.8b").reduced().with_overrides(
+        num_kv_heads=2)
+    g = torch.Generator(cuda).manual_seed(0)
+    model = LM(cfg, generator=g)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 100), generator=g,
+                            device=cuda)
+    out = serve.generate(model, prompts, 4)
+    assert out["prefill_launches"] == cfg.num_layers
+    assert out["decode_launches"] == 0
+    plain = serve.generate(model, prompts, 4,
+                           attention=ops_plain_attention)
+    want = plain["prefill_logits"]
+    assert float((out["prefill_logits"] - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+    _, cache = steps.make_prefill_step(cfg, 104)(model, prompts)
+    ld, _ = steps.make_decode_step(cfg)(model, cache, prompts[:, :1])
+    with torch.no_grad():
+        lf, _, _ = model(torch.cat([prompts, prompts[:, :1]], 1),
+                         logits_slice=1)
+    assert float((ld[:, -1] - lf[:, -1]).abs().max()) < 5e-4
+
+
+def ops_plain_attention(q, k, v, causal=True, window=None, scale=None):
+    return F.flash_attention_plain(q, k, v, causal, window, scale)
+
+
+def test_serve_lm_on_the_card(cuda, capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "internlm2-1.8b", "--reduced", "--batch", "2",
+                "--prompt-len", "64", "--gen", "4"])
+    out = capsys.readouterr().out
+    assert "on cuda" in out and "2 in the prefill (2 layers)" in out

@@ -327,3 +327,118 @@ def test_sparse_serving_defaults_to_the_card(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_gp.main(["--sparse-m", "4", "--agents", "2",
                        "--per-agent", "8"])
+
+
+def _meta_flash_inputs(B=1, H=4, KH=2, Sq=8, Sk=8, D=64,
+                       dtype=torch.float32):
+    meta = dict(device="meta", dtype=dtype)
+    return (torch.empty(B, H, Sq, D, **meta), torch.empty(B, KH, Sk, D, **meta),
+            torch.empty(B, KH, Sk, D, **meta))
+
+
+def test_flash_attention_plain_never_takes_a_tensor_off_the_cpu(monkeypatch):
+    """Meta tensors stand in for CUDA tensors: the op, the kernel module
+    and an attention layer send them to the kernel's launch path (its
+    checks refuse a non-CUDA device), never to the plain version."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import Attention
+
+    def plain(*args, **kw):
+        raise AssertionError("plain version reached from a non-CPU tensor")
+    monkeypatch.setattr(F, "flash_attention_plain", plain)
+    q, k, v = _meta_flash_inputs()
+    before = F.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="CUDA device"):
+        F.flash_attention(q, k, v, window=4)
+    cfg = get_config("internlm2-1.8b").reduced()
+    attn = Attention(cfg, device="meta")
+    x = torch.empty(2, 8, cfg.d_model, device="meta")
+    pos = torch.arange(8, device="meta").expand(2, 8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        attn(x, pos)
+    assert F.launches == before
+
+
+def test_flash_attention_raises_when_the_loader_fails(monkeypatch):
+    from repro_torch.kernels import flash_attention as F
+
+    def fail(name):
+        raise RuntimeError("nvcc not found")
+
+    def plain(*args, **kw):
+        raise AssertionError("plain version reached from a non-CPU tensor")
+    monkeypatch.setattr(_build, "load_library", fail)
+    monkeypatch.setattr(F, "flash_attention_plain", plain)
+    monkeypatch.setattr(F, "_check", lambda *args: None)
+    F._library.cache_clear()
+    q, k, v = _meta_flash_inputs()
+    before = F.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ops.flash_attention(q, k, v)
+    assert F.launches == before
+    F._library.cache_clear()
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("dtype", "float32 or all bfloat16"), ("mixed", "float32 or all"),
+    ("contiguous", "contiguous"), ("shape", "want q"),
+    ("gqa", "multiple of KH"), ("sq>sk", "no admitted key"),
+    ("window", "window"), ("dim", "head dimension"),
+    ("device", "CUDA device")])
+def test_flash_attention_kernel_input_checks_raise(bad, match):
+    from repro_torch.kernels import flash_attention as F
+    q, k, v = _meta_flash_inputs()
+    window = None
+    if bad == "dtype":
+        q, k, v = _meta_flash_inputs(dtype=torch.float16)
+    elif bad == "mixed":
+        k = k.bfloat16()
+    elif bad == "contiguous":
+        q = torch.empty(1, 8, 4, 64, device="meta").transpose(1, 2)
+    elif bad == "shape":
+        v = torch.empty(1, 2, 8, 32, device="meta")
+    elif bad == "gqa":
+        q = torch.empty(1, 3, 8, 64, device="meta")
+    elif bad == "sq>sk":
+        q = torch.empty(1, 4, 9, 64, device="meta")
+    elif bad == "window":
+        window = 0
+    elif bad == "dim":
+        q, k, v = _meta_flash_inputs(D=96)
+    with pytest.raises((ValueError, TypeError), match=match):
+        F._check(q, k, v, window)
+
+
+def test_lm_serving_defaults_to_the_card(no_card):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LM(get_config("internlm2-1.8b").reduced())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "internlm2-1.8b", "--reduced"])
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "whisper-small",
+                                  "jamba-v0.1-52b", "xlstm-350m",
+                                  "llama4-maverick-400b-a17b",
+                                  "internvl2-76b"])
+def test_unported_lm_families_say_not_yet_ported(arch):
+    """MoE, jamba, xLSTM, the encoder-decoder and the VLM prefix name
+    their ROADMAP item; the dense configurations build."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import LM
+    cfg = get_config(arch).reduced()
+    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
+        LM(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
+        steps.make_prefill_step(cfg, 8)
+    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
+        serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    for dense in ("internlm2-1.8b", "chatglm3-6b", "granite-3-8b",
+                  "phi3-medium-14b"):
+        LM(get_config(dense).reduced(), device="cpu")
