@@ -11,11 +11,16 @@ Phases, one JSON line each:
            the main paths' shapes and at ragged/edge shapes (rbf_gram at
            the sparse fit's panel, the 100k fleet's tail panel, a square
            panel with noise and edge shapes), checks that
-           two nll_grad calls are bitwise equal, that a zero x leaves a
-           factor bitwise unchanged under cholupdate and that its inactive
-           agents come back untouched, and times each kernel, its plain
-           version and a library yardstick with CUDA events beside the
-           kernel's lower bound.
+           two nll_grad calls are bitwise equal, that cholupdate equals
+           its plain version bit for bit in every case, is bitwise
+           repeatable over 20 evictions, makes at most two device launches
+           a call (traced), leaves a factor bitwise unchanged under a zero
+           x and its inactive agents untouched, raises when a panel's
+           rotations are withheld (its watchdog), and that its branch-free
+           division and sqrt equal the intrinsics bit for bit (every sqrt
+           input in range, 2^32 random divisions), and times each kernel,
+           its plain version and a library yardstick with CUDA events
+           beside the kernel's lower bound.
   serve    the serving path: a paper-scale DEC-rBCM fleet (32,400 points
            from a GP field, M = 4 agents on a path graph, 200 DAC sweeps,
            chunk 256, float32, streamed mean) fitted at the true
@@ -142,6 +147,9 @@ NLL_GRAD_EDGE_SHAPES = [(4, 8099, 2), (4, 131, 2), (4, 1, 2), (4, 1013, 1),
                         (3, 777, 3), (2, 555, 8), (40, 810, 2)]
 # cholupdate (M, n) at random factors after the paper-fleet cases
 CHOLUPDATE_EDGE_SHAPES = [(3, 777), (4, 131), (4, 1)]
+CHOLUPDATE_REPEATS = 20               # evictions held bitwise to the first
+CHOLUPDATE_SELFCHECK_DIVS = 1 << 32   # random divisions held to __fdiv_rn
+PROFILE_PAD = 8                       # spin kernels that open each trace
 # assumed least latency of one column of the rotation chain: a correctly
 # rounded sqrt and a division on the dependent path, each at least a MUFU
 # approximation and a fused multiply-add refinement (about 20 cycles),
@@ -357,16 +365,19 @@ def online_data(ctx):
 
 def cholupdate_bound_ms(M: int, n: int, shift: int,
                         sm_count: int) -> tuple[float, str, float]:
-    """Least time for the rank-1 update of M factors on the card: the
-    lower triangle of the updated (n - shift) block read once and written
-    once, and x read, over the memory rate; or 5 FP32 operations per
-    element (a fused multiply-add for u, the division, a multiply and a
-    fused multiply-add for x) over their peak rate, whichever is larger.
-    Also returns the column chain's latency floor (CHAIN_CYCLES_PER_COLUMN
-    per column at the maximum SM clock), reported beside it."""
+    """Least time for the rank-1 update of M factors on the card, out of
+    place: the lower triangle of the updated (n - shift) block and of the
+    `shift` stale rows read once, the whole (n, n) output (its zeros above
+    the diagonal and the stale rows included) written once, and x read,
+    over the memory rate; or 5 FP32 operations per updated element (a
+    fused multiply-add for u, the division, a multiply and a fused
+    multiply-add for x) over their peak rate, whichever is larger. Also
+    returns the column chain's latency floor (CHAIN_CYCLES_PER_COLUMN per
+    column at the maximum SM clock), reported beside it."""
     m = n - shift
     elems = M * m * (m + 1) // 2
-    t_bytes = 4 * (2 * elems + M * m) / HBM_BYTES_PER_S
+    read = M * n * (n + 1) // 2       # the updated block's and stale rows'
+    t_bytes = 4 * (read + M * n * n + M * m) / HBM_BYTES_PER_S
     t_ops = 5 * elems / FP32_FLOPS_PER_S
     chain = m * CHAIN_CYCLES_PER_COLUMN / SM_CLOCK_HZ
     return (1e3 * max(t_bytes, t_ops),
@@ -736,13 +747,16 @@ def nll_grad_cases(ctx, sms):
 
 
 def cholupdate_cases(ctx, sms):
-    """cholupdate against its plain version on the card, relative to max
-    |L'| per agent: the real shift=1 eviction of the paper fleet's four
-    factors (timed, with the refactorization as yardstick), an update and
+    """cholupdate against its plain version on the card, bit for bit (and
+    relative to max |L'| per agent, reported): the real shift=1 eviction
+    of the paper fleet's four factors (timed by events and traced for its
+    device time and device launches, with the refactorization as
+    yardstick, and CHOLUPDATE_REPEATS calls bitwise equal), an update and
     a downdate that keeps the factor positive definite at n = 8,099,
     random factors at the edge shapes, a partially filled window whose x
-    is zero beyond its count, a zero x (bitwise no-op) and a mask with two
-    of four agents active (the others bitwise untouched)."""
+    is zero beyond its count, a zero x (bitwise no-op), a mask with two
+    of four agents active (the others bitwise untouched), and a withheld
+    panel that must trip the watchdog."""
     import torch
     from repro_torch.core.gp import cov_matrix, pack
     from repro_torch.core.online import from_batch
@@ -767,11 +781,12 @@ def cholupdate_cases(ctx, sms):
         M, n, _ = L.shape
         case = {"case": name, "M": M, "n": n, "shift": shift,
                 "downdate": downdate,
+                "bitwise_equal": bool(torch.equal(got, want)),
                 "max_rel_err": float((err / want.abs().amax((1, 2))
                                       .clamp_min(1e-30)).max()),
                 "max_abs_err": float(err.max()),
                 "plain_ms": start.elapsed_time(end)}
-        ok = case["max_rel_err"] <= REL_TOL
+        ok = case["bitwise_equal"] and case["max_rel_err"] <= REL_TOL
         if not bool(x.any()):
             case["bitwise_unchanged"] = bool(torch.equal(got, L)
                                              and torch.equal(want, L))
@@ -789,6 +804,25 @@ def cholupdate_cases(ctx, sms):
     L = factor(Xp)
     x = L[:, :, 0]
     case, evicted = check("evict", L, x, shift=1)
+    case["bitwise_repeatable"] = all(
+        torch.equal(C.cholupdate(L, x, shift=1), evicted)
+        for _ in range(CHOLUPDATE_REPEATS))
+    if not case["bitwise_repeatable"]:
+        raise AssertionError(f"cholupdate is not bitwise repeatable over "
+                             f"{CHOLUPDATE_REPEATS} calls")
+    # one call traced: its device launches (the scratch's fill and the
+    # kernel; the fault word's copy is not a launch) and device time
+    trace = _profiled(lambda: C.cholupdate(L, x, shift=1), "cholupdate")
+    case["device_ms"] = trace["cholupdate_device_ms"]
+    case["device_ops"] = {k["name"]: k["count"]
+                          for k in trace["top_kernels"]}
+    case["device_launches_per_call"] = sum(
+        n_ for k, n_ in case["device_ops"].items()
+        if not k.startswith("Memcpy"))
+    if trace["cholupdate_device_launches"] != 1 or \
+            case["device_launches_per_call"] > C.DEVICE_LAUNCHES_PER_CALL:
+        raise AssertionError(f"cholupdate device launches per call: "
+                             f"{case['device_ops']}")
     case["ms"] = cuda_ms(lambda: C.cholupdate(L, x, shift=1), 20)
     case["refactorization_ms"] = cuda_ms(
         lambda: torch.linalg.cholesky(L @ L.mT + x[..., :, None]
@@ -834,6 +868,27 @@ def cholupdate_cases(ctx, sms):
     cases.append(check("mask", L, L[:, :, 0], shift=1,
                        active=torch.tensor([True, False, True, False],
                                            device=dev))[0])
+    C.check_faults()                  # every case above ran without a fault
+    # the branch-free division and sqrt against the intrinsics, bit for bit
+    math = C.selfcheck(CHOLUPDATE_SELFCHECK_DIVS, dev)
+    if math["sqrt_unequal"] or math["div_unequal"]:
+        raise AssertionError(f"cholupdate's fast division or sqrt differs "
+                             f"from the intrinsics: {math}")
+    cases.append({"case": "fast_math_selfcheck", **math})
+    # the watchdog: agent 0's panel 3 withheld, the call ends in time and
+    # its fault is raised
+    t0 = time.perf_counter()
+    C._launch(L, L[:, :, 0], False, 0, None, timeout_s=0.05, never_publish=3)
+    try:
+        C.check_faults()
+        tripped = ""
+    except RuntimeError as e:
+        tripped = str(e)
+    case = {"case": "watchdog", "M": 4, "n": 1013, "timeout_s": 0.05,
+            "raised": tripped, "s": time.perf_counter() - t0}
+    if "panel 3 of agent 0 never arrived" not in tripped:
+        raise AssertionError(f"cholupdate's watchdog did not trip: {case}")
+    cases.append(case)
     return cases
 
 
@@ -1167,6 +1222,7 @@ def phase_online(ctx):
             batch_ms.append(1e3 * (time.perf_counter() - t0))
             sq_err.append((m - fq[q0:q0 + BATCH]) ** 2)
     stream_s = time.perf_counter() - t_all
+    C.check_faults()                  # no eviction's watchdog fired
     launches = {"cholupdate": C.launches, "rbf_matvec": K.launches,
                 "nll_grad": G.launches}
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1684,13 +1740,19 @@ def _profiled(fn, port_kernel):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # PROFILE_PAD short spin kernels open the trace and are left out of
+        # every count: on the card a trace came about six device events
+        # short at its start, which must not be the port's kernel
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_kernel = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
             us, n = by_kernel.get(e.name, (0.0, 0))
             by_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     if not by_kernel:

@@ -155,7 +155,9 @@ def nll_grad_fused(log_theta, d2u, inner, K=None):
 def cholupdate_fleet(L, x, downdate: bool = False, shift: int = 0,
                      active=None):
     """Every agent's rank-1 update chol(L L^T +/- x x^T) in one kernel call
-    -> (M, n, n) in L's dtype.
+    -> (M, n, n) in L's dtype. On the card that call is one persistent
+    wavefront launch for the whole fleet (and the fill of its scratch),
+    bit for bit the plain version's float32 result.
 
     L (M, n, n) lower triangular, x (M, n), `active` (M,) bool or None
     (agents left out come back unchanged). `shift=k` updates the trailing

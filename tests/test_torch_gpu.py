@@ -198,35 +198,129 @@ def _rel(got, want):
                   / want.abs().amax((1, 2))).max())
 
 
-@pytest.mark.parametrize("M,n,shift", [(4, 8100, 1), (4, 2049, 0),
-                                       (3, 777, 1), (4, 131, 0), (2, 33, 1),
-                                       (4, 1, 0)])
+def _cholupdate_shapes():
+    """PR 14's shapes, then every panel and strip edge (strips and panels
+    are 32 wide): n = 1, 31, 32, 33, 63, 64, 65, 777, 8,100 with shift 0,
+    1, n - 1 and n."""
+    shapes = [(4, 8100, 1), (4, 2049, 0), (3, 777, 1), (4, 131, 0),
+              (2, 33, 1), (4, 1, 0)]
+    for n in (1, 31, 32, 33, 63, 64, 65, 777, 8100):
+        for shift in sorted({0, 1, n - 1, n}):
+            if not any(s[1:] == (n, shift) for s in shapes):
+                shapes.append((4 if n == 8100 else 3, n, shift))
+    return shapes
+
+
+@pytest.mark.parametrize("M,n,shift", _cholupdate_shapes())
 def test_cholupdate_kernel_matches_plain(cuda, M, n, shift):
-    """Update (and the eviction with shift=1) within 1e-5 of the plain
-    version relative to max |L'| per agent, upper triangle exactly zero,
-    one wrapper launch; the downdate by the same x brings L back."""
+    """Update (and the eviction with shift > 0) bit for bit equal to the
+    plain version on the card, upper triangle exactly zero, one wrapper
+    launch; without a shift, the downdate by the same x too."""
     L, g = _factors(cuda, M, n, n)
     x = L[:, :, 0] if shift else 0.5 * torch.randn(M, n, generator=g,
                                                     device=cuda)
     before = C.launches
     got = C.cholupdate(L, x, shift=shift)
     assert C.launches == before + 1
-    assert _rel(got, C.cholupdate_plain(L, x, shift=shift)) <= REL_TOL
+    assert torch.equal(got, C.cholupdate_plain(L, x, shift=shift))
     assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
     if not shift:
         down = C.cholupdate(got, x, downdate=True)
-        assert _rel(down, C.cholupdate_plain(got, x, downdate=True)) \
-            <= REL_TOL
+        assert C.launches == before + 2
+        assert torch.equal(down, C.cholupdate_plain(got, x, downdate=True))
 
 
 def test_cholupdate_zero_x_and_mask_are_bitwise(cuda):
+    """A zero x leaves L bitwise; with 1, 2 or all 4 agents inactive the
+    inactive ones come back as L and the whole result equals the plain
+    version's bit for bit."""
     L, _ = _factors(cuda, 4, 300, 0)
     assert torch.equal(C.cholupdate(L, torch.zeros(4, 300, device=cuda)), L)
-    active = torch.tensor([True, False, True, False], device=cuda)
-    got = C.cholupdate(L, L[:, :, 0], shift=1, active=active)
-    assert torch.equal(got[~active], L[~active])
-    want = C.cholupdate_plain(L, L[:, :, 0], shift=1, active=active)
-    assert _rel(got[active], want[active]) <= REL_TOL
+    for mask in ([True, False, True, True], [True, False, True, False],
+                 [False] * 4):
+        active = torch.tensor(mask, device=cuda)
+        got = C.cholupdate(L, L[:, :, 0], shift=1, active=active)
+        assert torch.equal(got[~active], L[~active])
+        assert torch.equal(got, C.cholupdate_plain(L, L[:, :, 0], shift=1,
+                                                   active=active))
+
+
+def test_cholupdate_partial_window_is_bitwise(cuda):
+    """A window holding 500 of 777 points: x = L[:, :, 0] is zero on the
+    sentinel rows, whose columns the kernel skips as the plain one does."""
+    from repro_torch.core.online import from_batch
+    g = torch.Generator(cuda).manual_seed(5)
+    X = 2 * torch.rand(4, 500, 2, generator=g, device=cuda)
+    y = torch.sin(2 * X[..., 0])
+    lt = pack([1.2, 0.3], 1.3, 0.1, dtype=torch.float32, device=cuda)
+    L = from_batch(lt, X, y, window=777).L.contiguous()
+    x = L[:, :, 0]
+    assert bool((x[:, 500:] == 0).all())
+    assert torch.equal(C.cholupdate(L, x, shift=1),
+                       C.cholupdate_plain(L, x, shift=1))
+
+
+def test_cholupdate_back_to_back_calls_are_bitwise(cuda):
+    """200 calls in a row at the eviction shape of the paper's windows:
+    every one finishes (no hang) and equals the first bit for bit (no
+    race), which equals the plain version."""
+    L, _ = _factors(cuda, 4, 8100, 8100)
+    x = L[:, :, 0]
+    first = C.cholupdate(L, x, shift=1)
+    before = C.launches
+    same = [torch.equal(C.cholupdate(L, x, shift=1), first)
+            for _ in range(200)]
+    C.check_faults()
+    assert C.launches == before + 200 and all(same)
+    assert torch.equal(first, C.cholupdate_plain(L, x, shift=1))
+
+
+def test_cholupdate_two_device_launches_per_call(cuda):
+    """One wrapper call is the scratch's fill and one cholupdate kernel on
+    the device (besides the copy of its fault word)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    L, _ = _factors(cuda, 4, 1013, 1)
+    x = L[:, :, 0]
+    C.cholupdate(L, x, shift=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        C.cholupdate(L, x, shift=1)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not e.name.startswith("Memcpy")]
+    assert len(names) == C.DEVICE_LAUNCHES_PER_CALL, names
+    assert sum("cholupdate" in nm for nm in names) == 1, names
+
+
+def test_cholupdate_fast_division_and_sqrt_are_the_intrinsics(cuda):
+    """The kernel's branch-free division and square root equal __fdiv_rn
+    and __fsqrt_rn bit for bit wherever their range check passes: every
+    float in the square root's range, 2^30 pseudo-random divisions."""
+    got = C.selfcheck(1 << 30, cuda)
+    assert got["sqrt_checked"] > 1.9e9 and got["div_checked"] > 6e8, got
+    assert got["sqrt_unequal"] == 0 and got["div_unequal"] == 0, got
+
+
+def test_cholupdate_watchdog_raises_instead_of_hanging(cuda):
+    """A panel whose rotations never arrive (withheld through the test
+    hook) trips the watchdog: the call ends within its timeout, the fault
+    is raised by check_faults (and, unchecked, by the next call), and the
+    call after that is right again."""
+    L, g = _factors(cuda, 2, 300, 2)
+    x = 0.5 * torch.randn(2, 300, generator=g, device=cuda)
+    C._launch(L, x, False, 0, None, timeout_s=0.05, never_publish=3)
+    with pytest.raises(RuntimeError, match="panel 3 of agent 0 never "
+                                           "arrived"):
+        C.check_faults()
+    C._launch(L, x, False, 0, None, timeout_s=0.05, never_publish=3)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="panel 3 of agent 0"):
+        C.cholupdate(L, x)
+    got = C.cholupdate(L, x)
+    C.check_faults()
+    assert torch.equal(got, C.cholupdate_plain(L, x))
 
 
 def test_cholupdate_op_casts_float64_and_the_kernel_refuses_it(cuda):

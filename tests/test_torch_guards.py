@@ -227,11 +227,14 @@ def test_cholupdate_raises_when_the_loader_fails(monkeypatch):
 
 @pytest.mark.parametrize("bad,match", [
     ("dtype", "float32"), ("contiguous", "contiguous"), ("shape", "want L"),
-    ("shift", "shift"), ("mask", "active"), ("device", "CUDA device")])
+    ("shift", "shift"), ("mask", "active"), ("device", "CUDA device"),
+    ("tickets", "ticket counter")])
 def test_cholupdate_kernel_input_checks_raise(bad, match):
     L, x = _meta_cholupdate_inputs()
     shift, active = 0, None
-    if bad == "dtype":
+    if bad == "tickets":      # 2^26 agents x 32 strips: past the int32 counter
+        L, x = _meta_cholupdate_inputs(M=2**26, n=1024)
+    elif bad == "dtype":
         x = x.double()
     elif bad == "contiguous":
         L = L.transpose(1, 2)
@@ -243,6 +246,44 @@ def test_cholupdate_kernel_input_checks_raise(bad, match):
         active = torch.empty(3, dtype=torch.int32, device="meta")
     with pytest.raises((ValueError, TypeError), match=match):
         C._check(L, x, shift, active)
+
+
+def test_cholupdate_kernel_takes_a_strided_x():
+    """The eviction passes x = L[:, :, 0], a strided view: the kernel reads
+    it in place (no scratch copy), so only the device check refuses these
+    meta tensors; the largest ticket count the counter holds passes."""
+    L, _ = _meta_cholupdate_inputs()
+    with pytest.raises(ValueError, match="CUDA device"):
+        C._check(L, L[:, :, 0], 1, None)
+    most = C.MAX_TICKETS // 32                    # agents of 32 strips
+    assert C.schedule(most, 1024, 0).tickets <= C.MAX_TICKETS
+    with pytest.raises(ValueError, match="ticket counter"):
+        C.schedule(most + 1, 1024, 0)
+
+
+def test_cholupdate_fault_word_raises_at_the_next_check(monkeypatch):
+    """The kernel's watchdog word (-1, or the index of the (agent, panel)
+    record that never arrived) is checked after the fact: calls the device
+    has not finished stay pending unless check_faults waits for them, and
+    a fault names its agent and panel."""
+    class Done:
+        def __init__(self, finished):
+            self.finished = finished
+
+        def query(self):
+            return self.finished
+
+        def synchronize(self):
+            self.finished = True
+    word = torch.tensor([-1], dtype=torch.int32)
+    late = (Done(False), torch.tensor([2 * 254 + 7], dtype=torch.int32),
+            254, 2.0)
+    monkeypatch.setattr(C, "_pending", [(Done(True), word, 254, 2.0), late])
+    C.check_faults(wait=False)                # the fault is not done yet
+    assert C._pending == [late]
+    with pytest.raises(RuntimeError, match="panel 7 of agent 2 never"):
+        C.check_faults()
+    assert C._pending == []
 
 
 def test_online_serving_defaults_to_the_card(no_card):
