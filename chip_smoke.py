@@ -92,7 +92,8 @@ prefill shape (4, 16/8, 2,048, 128, causal; timed, with PyTorch's
 scaled_dot_product_attention as the library yardstick, which the port
 never calls), a sliding window of 512 whose first key blocks are wholly
 masked for the late queries, bf16, ragged S = 1,000, the decode shape
-(Sq 1, Sk 2,081), D = 64 and D = 32, each bitwise repeatable.
+(Sq 1, Sk 2,081), D = 64 and D = 32, and the edges of the kernel's
+128-row query blocks and 64-key tiles, each bitwise repeatable.
 
 With --profile it then traces one 256-query batch of the serving path
 and the serving path's dense fit, one ADMM iteration of the training
@@ -125,6 +126,7 @@ DEVICE = "cuda"                 # every phase runs on the card
 # H100 SXM figures for the lower bounds (bound_ms):
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12        # NVIDIA data sheet, outside the tensor cores
+TF32_TC_FLOPS_PER_S = 495e12    # NVIDIA data sheet, dense TF32 tensor cores
 # exp2 on the special-function units: 16 results per clock per SM (CUDA C++
 # Programming Guide, arithmetic instruction throughput, compute capability
 # 9.0) at the 1,980 MHz maximum SM clock
@@ -237,14 +239,24 @@ BF16_TC_FLOPS_PER_S = 989e12          # NVIDIA data sheet, dense tensor cores
 # flash_attention (B, H, KH, Sq, Sk, D, causal, window, dtype): the
 # prefill shape first (timed), a sliding window whose first key blocks
 # are wholly masked for the late queries, bf16 at the prefill shape
-# (timed), ragged S, the decode shape, D = 64 and D = 32
+# (timed), ragged S, the decode shape, D = 64 and D = 32; then the edges
+# of the 128-row query block and 64-key tile: S of 127, 128, 129 and 191,
+# Sk - Sq not a multiple of the key tile, a window that masks whole
+# leading key tiles of a block, bf16 at D = 128 (its dropped passes)
 FLASH_CASES = [(4, 16, 8, 2048, 2048, 128, True, None, "float32"),
                (1, 16, 8, 2048, 2048, 128, True, 512, "float32"),
                (4, 16, 8, 2048, 2048, 128, True, None, "bfloat16"),
                (1, 16, 8, 1000, 1000, 128, True, None, "float32"),
                (4, 16, 8, 1, 2081, 128, True, None, "float32"),
                (2, 16, 8, 1024, 1024, 64, True, None, "float32"),
-               (2, 16, 8, 777, 777, 32, True, 100, "float32")]
+               (2, 16, 8, 777, 777, 32, True, 100, "float32"),
+               (1, 4, 2, 127, 127, 128, True, None, "float32"),
+               (1, 4, 2, 128, 128, 128, True, None, "float32"),
+               (1, 4, 2, 129, 129, 128, True, None, "float32"),
+               (1, 4, 2, 191, 191, 64, False, None, "float32"),
+               (1, 4, 2, 129, 300, 64, True, None, "float32"),
+               (1, 4, 2, 640, 640, 128, True, 100, "float32"),
+               (1, 8, 2, 300, 300, 128, True, None, "bfloat16")]
 # max |kernel - plain| relative to max |plain output|: float32 sums in
 # another order (the tolerance the reference's tests hold its Pallas
 # kernel to), bf16 outputs rounded to 8 bits
@@ -415,24 +427,30 @@ def flash_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
 
 def flash_bound_ms(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
                    causal: bool, window, dtype: str,
-                   sm_count: int) -> tuple[float, str, float]:
+                   sm_count: int) -> tuple[float, str, float, float]:
     """Least time for the attention on the card: q, k, v read once and o
     written once over the memory rate; or the two products, 4 D flops per
-    admitted (query, key) pair and head, over the peak rate of the
-    inputs' type (float32 FMA on the CUDA cores, bf16 on the tensor
-    cores), with one SFU exp2 per admitted pair, whichever is larger.
-    Also returns the bound of the same work in bf16 on the tensor cores."""
+    admitted (query, key) pair and head, with one SFU exp2 per admitted
+    pair, whichever is larger. float32 products at float32 accuracy run
+    as three split-TF32 passes on the tensor cores (3 x 4 D flops a pair
+    at the TF32 rate); bf16 products run once at the bf16 tensor-core
+    rate. Also returns the float32 bound of the same products as CUDA-core
+    FMAs, and the bound of the same work in bf16 on the tensor cores."""
     pairs = B * H * flash_pairs(Sq, Sk, causal, window)
     elems = 2 * B * H * Sq * D + 2 * B * KH * Sk * D
     size = 4 if dtype == "float32" else 2
     t_bytes = size * elems / HBM_BYTES_PER_S
-    rate = FP32_FLOPS_PER_S if dtype == "float32" else BF16_TC_FLOPS_PER_S
     t_exp = pairs / (SFU_EXP_PER_CLOCK_PER_SM * sm_count * SM_CLOCK_HZ)
-    t_ops = max(4 * D * pairs / rate, t_exp)
-    t_tc = max(4 * D * pairs / BF16_TC_FLOPS_PER_S, t_exp,
+    flops = 4 * D * pairs
+    t_mma = 3 * flops / TF32_TC_FLOPS_PER_S if dtype == "float32" \
+        else flops / BF16_TC_FLOPS_PER_S
+    t_ops = max(t_mma, t_exp)
+    t_fma = max(flops / FP32_FLOPS_PER_S, t_exp, t_bytes)
+    t_tc = max(flops / BF16_TC_FLOPS_PER_S, t_exp,
                2 * elems / HBM_BYTES_PER_S)
     return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes > t_ops else "operations", 1e3 * t_tc)
+            "bytes" if t_bytes > t_ops else "operations", 1e3 * t_fma,
+            1e3 * t_tc)
 
 
 def flash_attention_cases(ctx, sms):
@@ -480,7 +498,7 @@ def flash_attention_cases(ctx, sms):
                 lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20)
             case["library_call"] = ("scaled_dot_product_attention("
                                     "is_causal=True, enable_gqa=True)")
-            (case["bound_ms"], case["bound_by"],
+            (case["bound_ms"], case["bound_by"], case["fp32_fma_bound_ms"],
              case["bf16_tensor_core_bound_ms"]) = flash_bound_ms(
                  B, H, KH, Sq, Sk, D, causal, window, dt, sms)
             case["admitted_pairs_per_head"] = flash_pairs(Sq, Sk, causal,

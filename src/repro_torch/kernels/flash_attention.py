@@ -21,11 +21,18 @@ launches the hand-written kernel `csrc/flash_attention.cu` (float32 or
 bfloat16 inputs, head dimension 32, 64 or 128) or raises: there is no
 fallback to the plain version on the card. `launches` counts kernel
 launches, so a run can show that its path went through the kernel.
+
+The kernel runs both products on the tensor cores in split TF32: a float32
+x is hi + lo with hi = tf32_rna(x), lo = tf32_rna(x - hi), and a product
+is lo hi' + hi lo' + hi hi' (three TF32 passes, float32 accuracy).
+`tf32_rna`, `split_tf32` and `flash_attention_split_tf32` repeat that
+arithmetic in plain PyTorch for the tests; nothing else calls them.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -92,6 +99,75 @@ def flash_attention_plain(q, k, v, causal: bool = True, window=None,
     s.masked_fill_(~mask(Sq, Sk, causal, window, q.device), float("-inf"))
     w = torch.softmax(s, dim=-1).view(B, KH, g * Sq, Sk)
     return (w @ v.to(torch.float32)).view(B, H, Sq, D).to(q.dtype)
+
+
+def tf32_rna(x):
+    """float32 x rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as `cvt.rna.tf32.f32` rounds: add half of the 13 dropped
+    bits to the magnitude and clear them. inf and NaN pass unchanged."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_rna: want float32, got {x.dtype}")
+    bits = (x.view(torch.int32) + 0x1000) & ~0x1FFF
+    return torch.where(torch.isfinite(x), bits.view(torch.float32), x)
+
+
+def split_tf32(x):
+    """(hi, lo) with hi = tf32_rna(x) and lo = tf32_rna(x - hi): the
+    kernel's split of a float32 operand; x - hi is exact, and hi + lo is x
+    within 2^-22 |x| for normal x."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def flash_attention_split_tf32(q, k, v, causal: bool = True, window=None,
+                               scale=None, passes: int = 3):
+    """The kernel's arithmetic in plain PyTorch on float32: the blocked
+    online softmax over 64-key tiles, each tile's keys in the kernel's
+    order (score column c of an 8-key group is key (c >> 1) + 4 (c & 1)),
+    the scores scaled by scale log2(e) in float32, exp2, and both products
+    from TF32 operands: `passes` 3 sums lo hi' + hi lo' + hi hi' (the
+    kernel), 1 takes hi hi' alone (plain TF32). Products of TF32 values are
+    exact in float32; the sums round in float32 in another order than the
+    tensor cores'. Returns q's dtype."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    check_shapes(q, k, v, window)
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    g = H // KH
+    scale = D ** -0.5 if scale is None else float(scale)
+    qmul = torch.tensor(scale, dtype=torch.float32) * \
+        torch.tensor(math.log2(math.e), dtype=torch.float32)
+
+    def prod(a, b):
+        ah, al = split_tf32(a)
+        bh, bl = split_tf32(b)
+        if passes == 1:
+            return ah @ bh
+        return al @ bh + ah @ bl + ah @ bh
+
+    qf = q.to(torch.float32).reshape(B, KH, g * Sq, D)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    ok = mask(Sq, Sk, causal, window, q.device)
+    order = torch.tensor([8 * j + (c >> 1) + 4 * (c & 1)
+                          for j in range(8) for c in range(8)],
+                         device=q.device)
+    m = torch.full((B, KH, g * Sq), float("-inf"), device=q.device)
+    l = torch.zeros((B, KH, g * Sq), device=q.device)
+    o = torch.zeros((B, KH, g * Sq, D), device=q.device)
+    for k0 in range(0, Sk, 64):
+        keys = k0 + order[k0 + order < Sk]
+        s = prod(qf, kf[:, :, keys].transpose(-1, -2)) * qmul
+        s = s.view(B, KH, g, Sq, -1).masked_fill(
+            ~ok[:, keys], float("-inf")).view(B, KH, g * Sq, -1)
+        mnew = torch.maximum(m, s.amax(-1))
+        mref = torch.where(mnew == float("-inf"), 0.0, mnew)
+        corr = torch.exp2(m - mref)
+        p = torch.exp2(s - mref[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + prod(p, vf[:, :, keys])
+        m = mnew
+    return (o * (1 / l)[..., None]).view(B, H, Sq, D).to(q.dtype)
 
 
 @functools.cache

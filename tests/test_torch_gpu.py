@@ -443,7 +443,10 @@ def test_serve_gp_sparse_on_the_card(cuda, capsys):
 # flash_attention (B, H, KH, Sq, Sk, D, causal, window, dtype): the
 # prefill of internlm2-1.8b, a sliding window whose first key blocks are
 # wholly masked for the late queries, bf16, ragged S, the decode shape,
-# D = 64 and D = 32, not causal, Sq < Sk ragged
+# D = 64 and D = 32, not causal, Sq < Sk ragged; then the edges of the
+# kernel's 128-row query block and 64-key tile: S of 127, 128, 129 and
+# 191, Sk - Sq not a multiple of the key tile, a window that masks whole
+# leading key tiles of a block, bf16 at D = 128 (its dropped passes)
 FLASH_CASES = [
     (4, 16, 8, 2048, 2048, 128, True, None, torch.float32),
     (1, 16, 8, 2048, 2048, 128, True, 512, torch.float32),
@@ -453,7 +456,15 @@ FLASH_CASES = [
     (2, 8, 4, 777, 777, 64, True, None, torch.float32),
     (1, 4, 1, 203, 203, 32, True, 50, torch.float32),
     (1, 4, 2, 130, 130, 64, False, None, torch.float32),
-    (2, 4, 2, 65, 300, 32, True, None, torch.bfloat16)]
+    (2, 4, 2, 65, 300, 32, True, None, torch.bfloat16),
+    (1, 4, 2, 127, 127, 128, True, None, torch.float32),
+    (1, 4, 2, 128, 128, 128, True, None, torch.float32),
+    (1, 4, 2, 129, 129, 128, True, None, torch.float32),
+    (1, 4, 2, 191, 191, 64, False, None, torch.float32),
+    (1, 4, 2, 191, 191, 32, True, None, torch.bfloat16),
+    (1, 4, 2, 129, 300, 64, True, None, torch.float32),
+    (1, 4, 2, 640, 640, 128, True, 100, torch.float32),
+    (1, 8, 2, 300, 300, 128, True, None, torch.bfloat16)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
