@@ -10,8 +10,11 @@ Phases, one JSON line each:
   kernels  holds each kernel to its plain PyTorch version on the card, at
            the main paths' shapes and at ragged/edge shapes (rbf_gram at
            the sparse fit's panel, the 100k fleet's tail panel, a square
-           panel with noise and edge shapes), checks that
-           two nll_grad calls are bitwise equal, that cholupdate equals
+           panel with noise and edge shapes), checks that rbf_matvec is
+           bitwise repeatable and, traced at the serving tile and at the
+           sparse serving tile, one device launch a call (its device
+           time, host us per call and 20-call repeatability reported),
+           that two nll_grad calls are bitwise equal, that cholupdate equals
            its plain version bit for bit in every case, is bitwise
            repeatable over 20 evictions, makes at most two device launches
            a call (traced), leaves a factor bitwise unchanged under a zero
@@ -143,6 +146,8 @@ RMSE_LIMIT = 0.2                      # twice sigma_eps
 RBF_MATVEC_SHAPES = [(256, 4, 8100, 2), (200, 4, 8100, 2), (131, 4, 8099, 2),
                      (256, 4, 1013, 1), (97, 3, 777, 3), (256, 2, 555, 8),
                      (256, 40, 810, 2)]
+RBF_MATVEC_REPEATS = 20               # calls held bitwise to the first
+RBF_MATVEC_TRACED = 50                # back-to-back calls in one trace
 # nll_grad (M, N, D) after the training shape: ragged N, other D, and the
 # paper's largest fleet (M = 40 agents of 810 points)
 NLL_GRAD_EDGE_SHAPES = [(4, 8099, 2), (4, 131, 2), (4, 1, 2), (4, 1013, 1),
@@ -293,13 +298,13 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 def rbf_matvec_bound_ms(Nt: int, M: int, Ni: int, D: int,
                         sm_count: int) -> tuple[float, str]:
     """Least time for out (M, Nt) = sf2 * exp(-d2) @ v on the card: each
-    input read once and the output written once over the memory rate, or
-    the operations over their peak rates — per (query, point) pair one
-    exp2 on the SFUs and 3D + 3 FP32 flops (D subtracts, D fused
-    multiply-adds, the log2(e) scale, the accumulating fused multiply-add),
-    whichever is larger."""
+    input (a, b, v, the D lengthscales and sf2) read once and the output
+    written once over the memory rate, or the operations over their peak
+    rates — per (query, point) pair one exp2 on the SFUs and 3D + 3 FP32
+    flops (D subtracts, D fused multiply-adds, the log2(e) scale, the
+    accumulating fused multiply-add), whichever is larger."""
     pairs = Nt * M * Ni
-    bytes_ = 4 * (Nt * D + M * Ni * D + M * Ni + 1 + M * Nt)
+    bytes_ = 4 * (Nt * D + M * Ni * D + M * Ni + D + 1 + M * Nt)
     t_bytes = bytes_ / HBM_BYTES_PER_S
     t_flops = pairs * (3 * D + 3) / FP32_FLOPS_PER_S
     t_exp = pairs / (SFU_EXP_PER_CLOCK_PER_SM * sm_count * SM_CLOCK_HZ)
@@ -554,6 +559,45 @@ def _rel_err(torch, got, want, scale):
                   / scale.double().clamp_min(1e-30)).max())
 
 
+def rbf_matvec_timing(case, a, b, v, ls, sf2, sms):
+    """One shape of rbf_matvec timed on the card, into `case`: its device
+    time and device launches per call from a trace of RBF_MATVEC_TRACED
+    back-to-back calls (the phase raises unless every call is one device
+    launch), the mean ms per call by CUDA events over 200 back-to-back
+    calls, the host's us per call (the enqueue of 200 calls on the
+    host's clock, which the events time includes whenever the card is
+    faster than the host), RBF_MATVEC_REPEATS calls held bitwise to the
+    first, and the bound."""
+    import torch
+    from repro_torch.kernels import rbf_matvec as K
+    first = K.rbf_matvec(a, b, v, ls, sf2)
+    case["bitwise_repeatable"] = all(
+        torch.equal(K.rbf_matvec(a, b, v, ls, sf2), first)
+        for _ in range(RBF_MATVEC_REPEATS))
+    trace = _profiled(lambda: [K.rbf_matvec(a, b, v, ls, sf2)
+                               for _ in range(RBF_MATVEC_TRACED)],
+                      "rbf_matvec")
+    case["device_ms"] = trace["rbf_matvec_device_ms"] / RBF_MATVEC_TRACED
+    case["device_launches_per_call"] = (trace["kernels_launched"]
+                                        / RBF_MATVEC_TRACED)
+    if not (case["bitwise_repeatable"]
+            and trace["rbf_matvec_device_launches"] == RBF_MATVEC_TRACED
+            and case["device_launches_per_call"] == 1):
+        raise AssertionError(f"rbf_matvec is not one repeatable device "
+                             f"launch a call: {case}, {trace['top_kernels']}")
+    case["ms"] = cuda_ms(lambda: K.rbf_matvec(a, b, v, ls, sf2), 200)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        K.rbf_matvec(a, b, v, ls, sf2)
+    case["host_us_per_call"] = 1e6 * (time.perf_counter() - t0) / 200
+    torch.cuda.synchronize()
+    case["bound_ms"], case["bound_by"] = rbf_matvec_bound_ms(
+        *a.shape[:1], *b.shape, sms)
+    case["geometry"] = K.geometry(*a.shape[:1], *b.shape, sms)._asdict()
+    return case
+
+
 def phase_kernels(ctx):
     import torch
     from repro_torch.kernels import rbf_matvec as K
@@ -565,35 +609,37 @@ def phase_kernels(ctx):
     for Nt, M, Ni, D in shapes:
         ls = (torch.tensor(TRUE_THETA[0], device=dev) if D == 2
               else torch.full((D,), 0.5, device=dev))
-        a = (2 * torch.rand(Nt, D, generator=gen, device=dev) / ls)
-        b = (2 * torch.rand(M, Ni, D, generator=gen, device=dev) / ls)
+        a = 2 * torch.rand(Nt, D, generator=gen, device=dev)
+        b = 2 * torch.rand(M, Ni, D, generator=gen, device=dev)
         v = torch.randn(M, Ni, generator=gen, device=dev)
         sf2 = torch.tensor([TRUE_THETA[1] ** 2], device=dev)
-        got = K.rbf_matvec(a, b, v, sf2)
-        want = K.rbf_matvec_plain(a, b, v, sf2)
-        scale = K.rbf_matvec_plain(a, b, v.abs(), sf2)
+        got = K.rbf_matvec(a, b, v, ls, sf2)
+        again = K.rbf_matvec(a, b, v, ls, sf2)
+        want = K.rbf_matvec_plain(a, b, v, ls, sf2)
+        scale = K.rbf_matvec_plain(a, b, v.abs(), ls, sf2)
         torch.cuda.synchronize()
         case = {"Nt": Nt, "M": M, "Ni": Ni, "D": D,
                 "max_rel_err": _rel_err(torch, got, want, scale),
-                "max_abs_err": float((got - want).abs().max())}
-        if not case["max_rel_err"] <= REL_TOL:
+                "max_abs_err": float((got - want).abs().max()),
+                "bitwise_repeatable": bool(torch.equal(got, again))}
+        if not (case["max_rel_err"] <= REL_TOL
+                and case["bitwise_repeatable"]):
             raise AssertionError(f"rbf_matvec disagrees with its plain "
-                                 f"version at {case}")
+                                 f"version or is not repeatable at {case}")
         if (Nt, M, Ni, D) == shapes[0]:
             # library yardstick: no single PyTorch call computes this
             # function, so the composition cdist -> exp -> bmm is timed
             def composed():
-                k = torch.cdist(a[None].expand(M, Nt, D), b).square_()
+                k = torch.cdist((a / ls)[None].expand(M, Nt, D),
+                                b / ls).square_()
                 return sf2 * torch.bmm(k.neg_().exp_(), v[..., None])
-            case["ms"] = cuda_ms(lambda: K.rbf_matvec(a, b, v, sf2), 200)
+            rbf_matvec_timing(case, a, b, v, ls, sf2, sms)
             case["plain_ms"] = cuda_ms(
-                lambda: K.rbf_matvec_plain(a, b, v, sf2), 20)
+                lambda: K.rbf_matvec_plain(a, b, v, ls, sf2), 20)
             case["composed_library_ms"] = cuda_ms(composed, 20)
-            case["bound_ms"], case["bound_by"] = rbf_matvec_bound_ms(
-                Nt, M, Ni, D, sms)
             ctx["rbf_matvec"] = case
         cases.append(case)
-    cases.append(sparse_matvec_case(ctx))
+    cases.append(sparse_matvec_case(ctx, sms))
     return {"rel_tol": REL_TOL, "rbf_matvec": cases,
             "nll_grad": nll_grad_cases(ctx, sms),
             "cholupdate": cholupdate_cases(ctx, sms),
@@ -603,12 +649,13 @@ def phase_kernels(ctx):
             "flash_attention": flash_attention_cases(ctx, sms)}
 
 
-def sparse_matvec_case(ctx):
+def sparse_matvec_case(ctx, sms):
     """rbf_matvec against its plain version at the shape the sparse
     serving path gives it (Nt 256, M 4, Ni = SPARSE_M inducing points, D
     2), on that path's own inputs: the sparse phase's first query batch,
     the paper fleet's stride inducing points and the weights c of its
-    float64 sparse fit, cast to float32 as the op casts them."""
+    float64 sparse fit, cast to float32 as the op casts them; timed and
+    traced as the serving tile is."""
     import torch
     from repro_torch.core.gp import pack
     from repro_torch.core.sparse import fit_sparse_experts, select_inducing
@@ -617,14 +664,14 @@ def sparse_matvec_case(ctx):
     lt = pack(*TRUE_THETA, dtype=torch.float64, device=Xp.device)
     Z = select_inducing(Xp.double(), SPARSE_M)
     c = fit_sparse_experts(lt, Xp.double(), yp.double(), Z).c
-    ls = torch.exp(lt[:2])
-    a = (Xq[:BATCH].double() / ls).float().contiguous()
-    b = (Z / ls).float().contiguous()
+    a = Xq[:BATCH].double().float().contiguous()
+    b = Z.float().contiguous()
     v = c.float().contiguous()
+    ls = torch.exp(lt[:2]).float()
     sf2 = torch.exp(2 * lt[2:3]).float()
-    got = K.rbf_matvec(a, b, v, sf2)
-    want = K.rbf_matvec_plain(a, b, v, sf2)
-    scale = K.rbf_matvec_plain(a, b, v.abs(), sf2)
+    got = K.rbf_matvec(a, b, v, ls, sf2)
+    want = K.rbf_matvec_plain(a, b, v, ls, sf2)
+    scale = K.rbf_matvec_plain(a, b, v.abs(), ls, sf2)
     torch.cuda.synchronize()
     case = {"Nt": BATCH, "M": Xp.shape[0], "Ni": SPARSE_M, "D": 2,
             "inputs": "sparse fleet's queries, Z and c",
@@ -633,7 +680,7 @@ def sparse_matvec_case(ctx):
     if not case["max_rel_err"] <= REL_TOL:
         raise AssertionError(f"rbf_matvec disagrees with its plain version "
                              f"at the sparse serving shape {case}")
-    return case
+    return rbf_matvec_timing(case, a, b, v, ls, sf2, sms)
 
 
 def rbf_gram_cases(ctx, sms):
@@ -994,7 +1041,7 @@ def phase_serve(ctx):
         mu_d, var_d = local_moments_cached(ft.log_theta, ft.Xp, ft.L,
                                            ft.alpha, Xt)
         mu_s = fleet.engine.posterior_means_streamed(Xt)
-        S = K.rbf_matvec_plain(Xt / ls, ft.Xp / ls, ft.alpha.abs(), sf2)
+        S = K.rbf_matvec_plain(Xt, ft.Xp, ft.alpha.abs(), ls, sf2)
         agent_err = max(agent_err, _rel_err(torch, mu_s, mu_d, S))
         beta = 0.5 * (torch.log(sf2) - torch.log(var_d))
         prec = (beta / var_d).sum(0) + (1 - beta.sum(0)) / sf2
@@ -1893,7 +1940,8 @@ def main(argv=None) -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
-            "library_ms": k.get("library_ms")})
+            "library_ms": k.get("library_ms"),
+            **({"device_ms": k["device_ms"]} if "device_ms" in k else {})})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

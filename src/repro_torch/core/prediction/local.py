@@ -31,7 +31,7 @@ def stream_means(log_theta, Xp, alpha, Xs):
     term) through the fused Gram-matvec kernel, O(Ni + Nt) memory per
     agent. Returns (M, Nt) in Xs's dtype."""
     ls, sigma_f, _ = unpack(log_theta)
-    return rbf_matvec_agents(Xs, Xp, alpha, ls, sigma_f).to(Xs.dtype)
+    return rbf_matvec_agents(Xs, Xp, alpha, ls, sigma_f**2).to(Xs.dtype)
 
 
 def local_moments_cached(log_theta, Xp, L, alpha, Xs,
@@ -40,15 +40,17 @@ def local_moments_cached(log_theta, Xp, L, alpha, Xs,
     (M, Nt).
 
     `stream_mean=True` takes the mean through the fused kernel (the serving
-    hot path); the variance needs the triangular solve against the cached
-    factor either way.
+    hot path, which shares the variance's unpacked theta and sigma_f^2);
+    the variance needs the triangular solve against the cached factor
+    either way.
     """
-    _, sigma_f, _ = unpack(log_theta)
+    ls, sigma_f, _ = unpack(log_theta)
+    sf2 = sigma_f**2
     ks = se_kernel(Xp, Xs[None], log_theta)                  # (M, Ni, Nt)
     v = torch.linalg.solve_triangular(L, ks, upper=False)
-    var = torch.clamp(sigma_f**2 - (v * v).sum(dim=-2), min=1e-12)
+    var = torch.clamp(sf2 - (v * v).sum(dim=-2), min=1e-12)
     if stream_mean:
-        return stream_means(log_theta, Xp, alpha, Xs), var
+        return rbf_matvec_agents(Xs, Xp, alpha, ls, sf2).to(Xs.dtype), var
     return torch.einsum("mnt,mn->mt", ks, alpha), var
 
 

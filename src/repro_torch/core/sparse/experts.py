@@ -192,10 +192,11 @@ def sparse_moments_cached(log_theta, Z, Lmm, LS, c, Xs,
     through the fused rbf_matvec kernel, with Z standing in for Xp.
     """
     ls, sigma_f, _ = unpack(log_theta)
+    sf2 = sigma_f**2
     ks, s1, s2 = _sparse_v(log_theta, Z, Lmm, LS, Xs)
-    var = torch.clamp(sigma_f**2 - s1 + s2, min=1e-12)
+    var = torch.clamp(sf2 - s1 + s2, min=1e-12)
     if stream_mean:
-        return rbf_matvec_agents(Xs, Z, c, ls, sigma_f).to(Xs.dtype), var
+        return rbf_matvec_agents(Xs, Z, c, ls, sf2).to(Xs.dtype), var
     return torch.einsum("mnt,mn->mt", ks, c), var
 
 

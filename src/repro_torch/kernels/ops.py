@@ -93,19 +93,18 @@ def kmn_stats(Z, X, y, lengthscales, sigma_f, bn: int = 4096):
     return B[0], b[0]
 
 
-def rbf_matvec_agents(Xs, Xp, alpha, lengthscales, sigma_f):
+def rbf_matvec_agents(Xs, Xp, alpha, lengthscales, sf2):
     """Every agent's k(Xs, X_m) @ alpha_m in one kernel call -> (M, Nt).
 
-    Xs (Nt, D) queries, Xp (M, Ni, D) agent inputs, alpha (M, Ni) weights.
-    Inputs are pre-scaled by 1/lengthscale here, as the reference's op
-    does before its kernel."""
-    a = Xs / lengthscales
-    b = Xp / lengthscales
-    sf2 = (sigma_f**2).reshape(1)
-    if a.device.type != "cpu":
-        a, b, alpha, sf2 = (t.to(torch.float32) for t in (a, b, alpha, sf2))
-    return _rbf_matvec.rbf_matvec(a.contiguous(), b.contiguous(),
-                                  alpha.contiguous(), sf2.contiguous())
+    Xs (Nt, D) queries, Xp (M, Ni, D) agent inputs, alpha (M, Ni) weights,
+    lengthscales (D,) and sf2 = sigma_f^2 (one element). The kernel scales
+    the inputs by 1/lengthscale itself, so on float32, contiguous inputs
+    on the card this is the launch alone; other inputs are cast to float32
+    first, as the reference's op casts its operands."""
+    args = (Xs, Xp, alpha, lengthscales, sf2.reshape(1))
+    if Xs.device.type != "cpu":
+        args = tuple(t.to(torch.float32).contiguous() for t in args)
+    return _rbf_matvec.rbf_matvec(*args)
 
 
 def rbf_matvec(x1, x2, v, lengthscales, sigma_f):
@@ -113,9 +112,11 @@ def rbf_matvec(x1, x2, v, lengthscales, sigma_f):
 
     Signature of the reference's `ops.rbf_matvec`: x1 (N, D), x2 (M, D),
     v (M,)."""
-    return rbf_matvec_agents(x1, x2[None], v[None], lengthscales,
-                             torch.as_tensor(sigma_f, dtype=x1.dtype,
-                                             device=x1.device))[0]
+    sigma_f = torch.as_tensor(sigma_f, dtype=x1.dtype, device=x1.device)
+    return rbf_matvec_agents(x1, x2[None], v[None],
+                             torch.as_tensor(lengthscales, dtype=x1.dtype,
+                                             device=x1.device),
+                             sigma_f**2)[0]
 
 
 def nll_grad_fused_agents(log_theta, d2u, inner, K=None):

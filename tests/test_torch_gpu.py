@@ -39,35 +39,75 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("Nt,M,Ni,D", [(256, 4, 8100, 2), (131, 4, 8099, 2),
-                                       (256, 4, 512, 2), (97, 3, 777, 3), (256, 2, 555, 8),
-                                       (64, 2, 300, 11), (256, 40, 810, 2),
-                                       (1, 1, 1, 1)])
+RBF_MATVEC_GPU_SHAPES = [(256, 4, 8100, 2), (131, 4, 8099, 2),
+                         (256, 4, 512, 2), (97, 3, 777, 3), (256, 2, 555, 8),
+                         (64, 2, 300, 11), (256, 40, 810, 2), (1, 1, 1, 1)]
+
+
+def _rbf_matvec_inputs(dev, Nt, M, Ni, D):
+    g = torch.Generator(dev).manual_seed(Nt + Ni)
+    a = 3 * torch.rand(Nt, D, generator=g, device=dev)
+    b = 3 * torch.rand(M, Ni, D, generator=g, device=dev)
+    v = torch.randn(M, Ni, generator=g, device=dev)
+    ls = 0.5 + torch.rand(D, generator=g, device=dev)
+    return a, b, v, ls, torch.tensor([1.69], device=dev)
+
+
+@pytest.mark.parametrize("Nt,M,Ni,D", RBF_MATVEC_GPU_SHAPES)
 def test_kernel_matches_plain(cuda, Nt, M, Ni, D):
-    g = torch.Generator(cuda).manual_seed(Nt + Ni)
-    a = 3 * torch.rand(Nt, D, generator=g, device=cuda)
-    b = 3 * torch.rand(M, Ni, D, generator=g, device=cuda)
-    v = torch.randn(M, Ni, generator=g, device=cuda)
-    sf2 = torch.tensor([1.69], device=cuda)
+    a, b, v, ls, sf2 = _rbf_matvec_inputs(cuda, Nt, M, Ni, D)
     before = K.launches
-    got = K.rbf_matvec(a, b, v, sf2)
+    got = K.rbf_matvec(a, b, v, ls, sf2)
     assert K.launches == before + 1
-    want = K.rbf_matvec_plain(a.double(), b.double(), v.double(),
-                              sf2.double())
-    scale = K.rbf_matvec_plain(a.double(), b.double(), v.double().abs(),
-                               sf2.double())
+    a, b, v, ls, sf2 = (t.double() for t in (a, b, v, ls, sf2))
+    want = K.rbf_matvec_plain(a, b, v, ls, sf2)
+    scale = K.rbf_matvec_plain(a, b, v.abs(), ls, sf2)
     assert got.shape == (M, Nt) and got.dtype == torch.float32
     assert float(((got.double() - want).abs() / scale).max()) <= REL_TOL
 
 
-def test_kernel_raises_on_cuda_float64(cuda):
+@pytest.mark.parametrize("Nt,M,Ni,D", RBF_MATVEC_GPU_SHAPES)
+def test_kernel_is_bitwise_repeatable(cuda, Nt, M, Ni, D):
+    """The cluster sums its partials in a fixed order: 20 calls equal."""
+    args = _rbf_matvec_inputs(cuda, Nt, M, Ni, D)
+    first = K.rbf_matvec(*args)
+    assert all(torch.equal(K.rbf_matvec(*args), first) for _ in range(20))
+
+
+@pytest.mark.parametrize("Nt,M,Ni,D", [(256, 4, 8100, 2), (256, 4, 512, 2)])
+def test_kernel_is_one_device_launch_per_call(cuda, Nt, M, Ni, D):
+    """One wrapper call is one kernel on the device and nothing else (no
+    scratch fill, no second pass), at the serve and sparse tiles."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = _rbf_matvec_inputs(cuda, Nt, M, Ni, D)
+    K.rbf_matvec(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):       # a trace may lose its first device events
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        K.rbf_matvec(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and "spin_kernel" not in e.name]
+    assert len(names) == 1 and "rbf_matvec" in names[0], names
+
+
+def test_kernel_raises_on_cuda_float64(cuda, monkeypatch):
     """A CUDA tensor never takes the plain path, whatever its dtype."""
+    def plain(*args):
+        raise AssertionError("plain version reached from a CUDA tensor")
+    monkeypatch.setattr(K, "rbf_matvec_plain", plain)
     a = torch.rand(8, 2, device=cuda, dtype=torch.float64)
     b = torch.rand(2, 5, 2, device=cuda, dtype=torch.float64)
     v = torch.rand(2, 5, device=cuda, dtype=torch.float64)
+    before = K.launches
     with pytest.raises(TypeError, match="float32"):
-        K.rbf_matvec(a, b, v, torch.ones(1, device=cuda,
-                                          dtype=torch.float64))
+        K.rbf_matvec(a, b, v, torch.ones(2, device=cuda, dtype=torch.float64),
+                     torch.ones(1, device=cuda, dtype=torch.float64))
+    assert K.launches == before
 
 
 def test_fleet_defaults_to_the_card_and_streams_through_the_kernel(cuda):
@@ -285,11 +325,15 @@ def test_cholupdate_two_device_launches_per_call(cuda):
     C.cholupdate(L, x, shift=1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):       # a trace may lose its first device events
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         C.cholupdate(L, x, shift=1)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA
-             and not e.name.startswith("Memcpy")]
+             and not e.name.startswith("Memcpy")
+             and "spin_kernel" not in e.name]
     assert len(names) == C.DEVICE_LAUNCHES_PER_CALL, names
     assert sum("cholupdate" in nm for nm in names) == 1, names
 

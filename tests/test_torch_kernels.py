@@ -85,7 +85,7 @@ def test_batched_op_equals_per_agent_calls():
     alpha = torch.from_numpy(rng.normal(size=(4, 41)))
     ls, sf = torch.tensor([1.2, 0.3], dtype=torch.float64), \
         torch.tensor(1.3, dtype=torch.float64)
-    out = ops.rbf_matvec_agents(Xs, Xp, alpha, ls, sf)
+    out = ops.rbf_matvec_agents(Xs, Xp, alpha, ls, sf**2)
     assert out.shape == (4, 29)
     for m in range(4):
         assert _rel(out[m], ops.rbf_matvec(Xs, Xp[m], alpha[m], ls, sf)) \
@@ -98,7 +98,7 @@ def test_cpu_path_never_loads_the_library(monkeypatch):
     monkeypatch.setattr(_build, "load_library", fail)
     K._library.cache_clear()
     a, b, v = torch.rand(5, 2), torch.rand(3, 7, 2), torch.rand(3, 7)
-    out = K.rbf_matvec(a, b, v, torch.tensor([2.0]))
+    out = K.rbf_matvec(a, b, v, torch.tensor([0.5, 2.0]), torch.tensor([2.0]))
     assert out.shape == (3, 5)
 
 
@@ -128,7 +128,8 @@ def test_non_cpu_tensor_raises_when_the_loader_fails(monkeypatch):
 
 @pytest.mark.parametrize("bad,match", [
     ("device", "CUDA device"), ("dtype", "float32"),
-    ("contiguous", "contiguous"), ("shape", "want a")])
+    ("contiguous", "contiguous"), ("shape", "want a"),
+    ("lengthscales", "want a")])
 def test_kernel_input_checks_raise(bad, match):
     """The launch wrapper refuses what the kernel does not take; meta
     tensors stand in for CUDA tensors, so every case also fails the device
@@ -142,17 +143,9 @@ def test_kernel_input_checks_raise(bad, match):
         b = torch.empty(3, 2, 9, **meta).transpose(1, 2)
     elif bad == "shape":
         v = torch.empty(3, 8, **meta)
+    ls = torch.empty(3 if bad == "lengthscales" else 2, **meta)
     with pytest.raises((ValueError, TypeError), match=match):
-        K._check(a, b, v, torch.empty(1, **meta))
-
-
-def test_splits_fill_the_card():
-    # the serving tile: 2 query blocks x 4 agents on 132 SMs want 33
-    # splits; Ni = 8100 has 32 stages of 256 points, which caps it
-    assert K.splits_for(256, 4, 8100, 132) == 32
-    assert K.splits_for(256, 4, 300, 132) == 2
-    # a large fleet already fills the card
-    assert K.splits_for(4096, 40, 810, 132) == 1
+        K._check(a, b, v, ls, torch.empty(1, **meta))
 
 
 @pytest.mark.parametrize("module", ["rbf_matvec.py", "ops.py", "nll_grad.py",
