@@ -8,7 +8,9 @@ Phases, one JSON line each:
   build    nvcc-builds every CUDA source of the port (src/repro_torch/
            kernels/csrc/*.cu, all at once) for sm_90a.
   kernels  holds each kernel to its plain PyTorch version on the card, at
-           the main paths' shapes and at ragged/edge shapes (rbf_gram at
+           the main paths' shapes (rbf_matvec also at the grBCM tiles, M =
+           1 and Ni = 16,200; nll_grad at gapx's N = 16,200) and at
+           ragged/edge shapes (rbf_gram at
            the sparse fit's panel, the 100k fleet's tail panel, a square
            panel with noise and edge shapes), checks that rbf_matvec is
            bitwise repeatable and, traced at the serving tile and at the
@@ -32,6 +34,32 @@ Phases, one JSON line each:
            once per query tile, that the means agree with the same experts
            served without the kernel, and the RMSE against the noise-free
            field.
+  methods  CBNN, grBCM and dense NPAE (the paper's Alg. 9-18): the same
+           paper fleet at the true hyperparameters, float32, streamed
+           means, with the grBCM communication dataset (8,100 points drawn
+           from the agents) and the augmented experts (4 x 16,200 points)
+           fitted beside the base experts. It serves grbcm, npae,
+           npae_star (from a fleet of its own with NPAE_STAR_JOR_ITERS JOR
+           iterations, C8), the six nn_* methods, cen_grbcm and cen_npae
+           on four 256-query tiles each through GPFleet.predict and
+           reports q/s, batch ms, RMSE, the final DAC / JOR / DALE
+           residuals, agents per query under CBNN, rbf_matvec launches per
+           batch (checked: one per expert set per tile) and peak memory.
+           It checks the RMSE; each DAC-family method against its
+           centralized form with the same mask within the DAC rounding
+           bound (DAC_ROUND); npae, npae_star and nn_npae against the
+           centralized NPAE solve within a bound from their reported
+           residuals (NPAE_ROUND; the bound's smallest and median value
+           reported); one tile of every method against the same port in
+           float64 on the card (F32_MEAN_TOL, F32_VAR_TOL; npae_star
+           within both runs' residual bounds where they are larger); that
+           cache_cross raises at the default 1,024 MB guard and, with the
+           limit raised, serves npae as without the cache. Then gapx and
+           dec-gapx train for 3 iterations each on the augmented data
+           (nll_grad at N = 16,200, one launch per iteration; finite
+           thetas checked), and the sparse m = 512 fleet (float64 data)
+           fits its augmented and communication experts through rbf_gram
+           and serves grbcm and nn_rbcm.
   train    the training path: the same fleet trained from the paper's
            theta0 with DEC-apx-GP (rho 500, kappa 10,000, 100 iterations,
            float32) by GPFleet.fit(train=True), then serving 4,096
@@ -102,7 +130,8 @@ With --profile it then traces one 256-query batch of the serving path
 and the serving path's dense fit, one ADMM iteration of the training
 path, one observe round and one served batch of the streaming fleet, one
 sparse fit of the 100k-per-agent fleet, one served rBCM batch of the
-sparse paper fleet, and one LM prefill and one decode step with
+sparse paper fleet, one npae, nn_npae and grbcm tile of the methods
+phase's fleet, and one LM prefill and one decode step with
 torch.profiler, and prints device time by kernel, the GEMMs' share and
 the device's busy share.
 
@@ -145,13 +174,20 @@ RMSE_LIMIT = 0.2                      # twice sigma_eps
 # shapes
 RBF_MATVEC_SHAPES = [(256, 4, 8100, 2), (200, 4, 8100, 2), (131, 4, 8099, 2),
                      (256, 4, 1013, 1), (97, 3, 777, 3), (256, 2, 555, 8),
-                     (256, 40, 810, 2)]
+                     (256, 40, 810, 2), (256, 1, 8100, 2), (256, 4, 16200, 2)]
+# the grBCM tiles of the methods phase, timed and traced like the serve
+# tile: the communication expert (M = 1) and the augmented experts
+GRBCM_TILES = ((256, 1, 8100, 2), (256, 4, 16200, 2))
 RBF_MATVEC_REPEATS = 20               # calls held bitwise to the first
 RBF_MATVEC_TRACED = 50                # back-to-back calls in one trace
 # nll_grad (M, N, D) after the training shape: ragged N, other D, and the
 # paper's largest fleet (M = 40 agents of 810 points)
 NLL_GRAD_EDGE_SHAPES = [(4, 8099, 2), (4, 131, 2), (4, 1, 2), (4, 1013, 1),
-                        (3, 777, 3), (2, 555, 8), (40, 810, 2)]
+                        (3, 777, 3), (2, 555, 8), (40, 810, 2),
+                        (4, 16200, 2), (4, 16199, 2)]
+# gapx / dec-gapx's shape (the augmented data, 2 x 8,100 points per agent:
+# d2u 2.1e9 elements, just under 2^31), timed like the training shape
+NLL_GRAD_AUG = (4, 16200, 2)
 # cholupdate (M, n) at random factors after the paper-fleet cases
 CHOLUPDATE_EDGE_SHAPES = [(3, 777), (4, 131), (4, 1)]
 CHOLUPDATE_REPEATS = 20               # evictions held bitwise to the first
@@ -266,6 +302,77 @@ FLASH_CASES = [(4, 16, 8, 2048, 2048, 128, True, None, "float32"),
 # another order (the tolerance the reference's tests hold its Pallas
 # kernel to), bf16 outputs rounded to 8 bits
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+# methods phase: CBNN, grBCM and dense NPAE on the paper fleet (float32,
+# streamed means), each method on METHOD_TILES query tiles of BATCH
+NEW_METHODS = ("grbcm", "npae", "npae_star", "nn_poe", "nn_gpoe", "nn_bcm",
+               "nn_rbcm", "nn_grbcm", "nn_npae", "cen_grbcm", "cen_npae")
+METHOD_TILES = 4
+# rbf_matvec launches per query tile with stream_mean: one per expert set
+# whose moments a method takes (the grbcm methods: the augmented experts
+# and the communication expert); the NPAE terms take k^T alpha densely, as
+# the reference's npae_terms_cached does
+MATVEC_PER_TILE = {"grbcm": 2, "nn_grbcm": 2, "cen_grbcm": 2, "nn_poe": 1,
+                   "nn_gpoe": 1, "nn_bcm": 1, "nn_rbcm": 1, "npae": 0,
+                   "npae_star": 0, "nn_npae": 0, "cen_npae": 0}
+UNIT = 2.0 ** -24                     # float32 unit roundoff
+# A DAC-family method against its centralized form with the same mask. Both
+# assemble the posterior from the same per-agent payloads w_i; DAC's sums
+# are M x the network mean after `dac_iters` sweeps of w <- P w with a
+# doubly stochastic P, which keeps the mean exactly in exact arithmetic.
+# In float32 each sweep rounds every entry by at most 2 u |w|max, so the
+# sums drift by at most DAC_ROUND = 2 dac_iters u M (sum_i |w_i|): the gate
+# compares the posterior's precision 1/var and precision-weighted mean
+# mean/var, query by query, against that bound over their payloads.
+DAC_ROUND = 2 * 200 * 4 * UNIT
+# The NPAE family against cen_npae (and nn_npae against
+# aggregation.npae(mask=)): JOR / DALE stop after jor_iters / dale_iters
+# with a final residual r_t = max |q^(s+1) - q^s| per query (the tile's
+# largest is the one the engine reports; the gate recomputes them with the
+# port's jor / dale on the tile's own systems and checks that the largest
+# is the reported one). For an affine iteration q' = c + G q with I - G
+# invertible, the error of the last iterate is (I - G)^-1 (q^(s+1) - q^s),
+# so |q - q*| <= kappa_t r_t with kappa_t = ||(I - G)^-1||_inf of the
+# query's own system (JOR: I - G = omega D^-1 H; DALE: its M^2 x M^2
+# operator). Float32 rounding of every step, the Cholesky of the
+# centralized solve and the two jitters' difference (4.6e-8 of the
+# diagonal) add at most NPAE_ROUND u |q|max to r_t. The gate:
+# |mean - mean_cen| and |var - var_cen| <= sum_i |k_A,i| kappa_t (r_t +
+# NPAE_ROUND u |q|max) + the DAC rounding of sum_i k_A,i q_i.
+NPAE_ROUND = 16
+# Each method's first tile against the same port in float64 on the card:
+# within a tenth of the measurement noise's standard deviation (sigma_eps
+# = 0.1) in the mean and a tenth of its variance in the variance, far
+# inside what the GP resolves (RMSE 0.007 against the field). npae and
+# nn_npae run the same unconverged iteration count in both dtypes and are
+# held to that alone. npae_star is held to the larger of that and the sum
+# of the float32 and float64 runs' residual bounds (NPAE_ROUND, each run's
+# own residuals and unit roundoff), since both sit within their bound of
+# the exact solve: its JOR runs at the edge of stability (C8), where
+# float32 and float64 part by up to 0.05 (an H100, 100,000 iterations).
+F32_MEAN_TOL = 0.1 * TRUE_THETA[2]
+F32_VAR_TOL = 0.1 * TRUE_THETA[2] ** 2
+CROSS_CACHE_LIMIT_MB = 8192           # the paper fleet's cross-Gram: 4,199 MB
+# DEC-NPAE* (Alg. 12) takes omega* = 2 / (lmax + lmin) of R = D^-1 C_A from
+# the power method. At the paper fleet C_A is ill-conditioned (cond 1e3-1e4
+# on a CPU run at 1,000 points per agent), so omega* lmax is within 1e-3 of
+# 2: the largest mode of JOR's error, the one k_A weighs most, decays at
+# |1 - omega* lmax| ~ 0.999 per iteration, and FleetConfig's 500 JOR
+# iterations leave it where it started (the reference does the same on the
+# same data; ROADMAP C8). On an H100 50,000 iterations took the first
+# tile's RMSE to 0.013 (20,000: 0.072; 100,000 did not improve on the four
+# tiles' 0.025; tools/npae_iterations.py). The phase serves and gates
+# npae_star through a fleet of its own, FleetConfig(jor_iters=
+# NPAE_STAR_JOR_ITERS).
+NPAE_STAR_JOR_ITERS = 50_000
+GAPX_ITERS = 3                        # gapx / dec-gapx iterations at 16,200
+# their proximal weights (kappa of eq. 34, L of eq. 26): TRAIN_KAPPA scaled
+# with the points per agent, 16,200 against the train phase's 8,100, since
+# the NLL's curvature grows like 2 N_i (see TRAIN_KAPPA; not a worked-out
+# rule, C4). gapx's agents diverge at this kappa; the reference does the
+# same at a reduced Ni with the same kappa / Ni (tools/gapx_kappa.py).
+GAPX_KAPPA = 2 * TRAIN_KAPPA
 
 
 def card_line() -> str:
@@ -638,6 +745,10 @@ def phase_kernels(ctx):
                 lambda: K.rbf_matvec_plain(a, b, v, ls, sf2), 20)
             case["composed_library_ms"] = cuda_ms(composed, 20)
             ctx["rbf_matvec"] = case
+        elif (Nt, M, Ni, D) in GRBCM_TILES:
+            rbf_matvec_timing(case, a, b, v, ls, sf2, sms)
+            case["plain_ms"] = cuda_ms(
+                lambda: K.rbf_matvec_plain(a, b, v, ls, sf2), 5)
         cases.append(case)
     cases.append(sparse_matvec_case(ctx, sms))
     return {"rel_tol": REL_TOL, "rbf_matvec": cases,
@@ -805,6 +916,12 @@ def nll_grad_cases(ctx, sms):
                 M, N, D, sms)
             ctx["nll_grad"] = case
             del Kmat
+        elif (M, N, D) == NLL_GRAD_AUG:
+            case["ms"] = cuda_ms(lambda: G.nll_grad(d2u, inner, params), 10)
+            case["plain_ms"] = cuda_ms(
+                lambda: G.nll_grad_plain(d2u, inner, params), 2, warmup=1)
+            case["bound_ms"], case["bound_by"] = nll_grad_bound_ms(
+                M, N, D, sms)
         cases.append(case)
         del d2u, inner
     torch.cuda.empty_cache()
@@ -980,7 +1097,8 @@ def phase_serve(ctx):
                                             train=False)
     torch.cuda.synchronize()
     fit_ms = 1e3 * (time.perf_counter() - t0)
-    if not all(bool(torch.isfinite(t).all()) for t in fleet.fitted):
+    if not all(bool(torch.isfinite(t).all()) for t in fleet.fitted
+               if t is not None):
         raise AssertionError("non-finite Cholesky factors")
     fleet.predict(Xq[:BATCH])                       # warm-up
     torch.cuda.synchronize()
@@ -1065,6 +1183,479 @@ def phase_serve(ctx):
             "max_rel_err_agent_means": agent_err,
             "max_rel_err_rbcm_means": mean_err,
             "dac_residual_4096": float(info["dac_residual"])}
+
+
+def _serve_method(predict, method, Xq, fq, chunk, failures):
+    """One method of the methods phase: a warm-up tile, then METHOD_TILES
+    tiles of BATCH queries through `predict(X, method=)` (GPFleet.predict),
+    the rbf_matvec count reset just before and read just after; an RMSE
+    above RMSE_LIMIT goes to `failures`. Returns the report and the first
+    tile's (mean, var, info)."""
+    import torch
+    from repro_torch.kernels import rbf_matvec as K
+    dev = torch.device(DEVICE)
+    predict(Xq[:BATCH], method=method)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launches()
+    outs, batch_ms = [], []
+    t_all = time.perf_counter()
+    for i in range(METHOD_TILES):
+        t0 = time.perf_counter()
+        outs.append(predict(Xq[i * BATCH:(i + 1) * BATCH], method=method))
+        torch.cuda.synchronize()
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+    total_s = time.perf_counter() - t_all
+    launches = K.launches
+    n = METHOD_TILES * BATCH
+    mean = torch.cat([o[0] for o in outs])
+    var = torch.cat([o[1] for o in outs])
+    if mean.shape != (n,) or not bool(torch.isfinite(mean).all()) \
+            or not bool(torch.isfinite(var).all()) \
+            or not bool((var > 0).all()):
+        raise AssertionError(f"{method}: served moments are not finite and "
+                             f"positive of the expected shape")
+    want = MATVEC_PER_TILE[method] * METHOD_TILES * -(-BATCH // chunk)
+    if launches != want:
+        raise AssertionError(f"{method}: rbf_matvec launched {launches} "
+                             f"times, {want} expected")
+    rmse = _rmse(mean, fq)
+    if not rmse < RMSE_LIMIT:
+        failures.append(f"{method}: RMSE {rmse} against the noise-free "
+                        f"field is not below {RMSE_LIMIT}")
+    rep = {"batch_ms": batch_ms, "mean_batch_ms": sum(batch_ms) / len(
+        batch_ms), "queries_per_s": n / total_s, "rmse_vs_field": rmse,
+        "rbf_matvec_launches_per_batch": launches / METHOD_TILES,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    for key in ("dac_residual", "jor_residual", "dale_residual"):
+        if key in outs[0][2]:
+            rep[key] = max(float(o[2][key]) for o in outs)
+    if "mask" in outs[0][2]:
+        rep["mean_agents_per_query"] = float(torch.cat(
+            [o[2]["mask"] for o in outs], 1).double().sum(0).mean())
+    return rep, outs[0]
+
+
+def _dac_scales(method, mu, var, pv, mask, mu_c=None, var_c=None):
+    """Per query, the summed |payloads| that bound the DAC rounding of the
+    posterior's precision and precision-weighted mean (see DAC_ROUND):
+    returns (prec_scale, num_scale)."""
+    import torch
+    base = method[3:] if method.startswith("nn_") else method
+    m = torch.ones_like(mu) if mask is None else mask.to(mu.dtype)
+    if base in ("poe", "bcm"):
+        beta = m
+    elif base == "gpoe":
+        beta = m / m.sum(0)
+    elif base == "rbcm":
+        beta = 0.5 * (torch.log(pv) - torch.log(var)) * m
+    else:                                              # grbcm
+        beta = 0.5 * (torch.log(var_c)[None] - torch.log(var))
+        beta[0] = 1.0
+        beta = beta * m
+    prec = (beta / var).abs().sum(0)
+    num = (beta * mu / var).abs().sum(0)
+    if base in ("bcm", "rbcm"):
+        prec = prec + beta.abs().sum(0) / pv
+    if base == "grbcm":
+        prec = prec + beta.abs().sum(0) / var_c
+        num = num + beta.abs().sum(0) * mu_c.abs() / var_c
+    return prec, num
+
+
+def _check_dac_vs_cen(method, got, want, scales, dac_iters, M):
+    """|1/var - 1/var_cen| and |mean/var - mean_cen/var_cen| per query
+    within DAC_ROUND's bound; returns the largest share of the bound."""
+    bound = 2 * dac_iters * M * UNIT
+    share = 0.0
+    for g, w, sc in ((1 / got[1], 1 / want[1], scales[0]),
+                     (got[0] / got[1], want[0] / want[1], scales[1])):
+        err = (g.double() - w.double()).abs()
+        share = max(share, float((err / (bound * sc.double())).max()))
+    if not share <= 1.0:
+        raise AssertionError(f"{method} differs from its centralized form "
+                             f"by {share} x the DAC rounding bound")
+    return share
+
+
+def _npae_bound(H, kA, b, r, dac_iters, omega=None, A=None, unit=UNIT):
+    """The per-query bound of the NPAE gate (see NPAE_ROUND) for the
+    systems H (Nt, M, M) of one tile with right-hand sides b (Nt, M, 2),
+    final residuals r (Nt,), `dac_iters` DAC sweeps and the unit roundoff
+    of the run's dtype: JOR at relaxation `omega`, or DALE on the
+    adjacency `A`. Computed in float64."""
+    import torch
+    H, kA, b = H.double(), kA.double(), b.double()
+    r = torch.as_tensor(r, dtype=H.dtype, device=H.device)
+    Nt, M, _ = H.shape
+    eye = torch.eye(M, dtype=H.dtype, device=H.device)
+    if A is None:
+        om = torch.as_tensor(omega, dtype=H.dtype, device=H.device)
+        om = om.expand(Nt) if om.dim() == 0 else om.double()
+        d = torch.diagonal(H, dim1=-2, dim2=-1)
+        I_G = om[:, None, None] * H / d[..., :, None]
+    else:
+        Af = A.to(H.device, H.dtype)
+        W = Af / torch.clamp(Af.sum(1), min=1.0)[:, None]
+        hn = (H * H).sum(-1)
+        P = eye - (H / hn[..., None])[..., :, None] * H[..., None, :]
+        T = W[None, :, None, :, None] * P[:, :, :, None, :]  # (Nt,i,e,j,f)
+        I_G = torch.eye(M * M, dtype=H.dtype, device=H.device) \
+            - T.reshape(Nt, M * M, M * M)
+    kappa = torch.linalg.inv(I_G).abs().sum(-1).amax(-1)
+    q = torch.linalg.solve(H, b)
+    qmax = q.abs().amax((-2, -1))
+    dac = 2 * dac_iters * M * unit \
+        * (kA.T[..., None] * q).abs().sum(1).amax(-1)
+    return kA.abs().sum(0) * kappa * (r + NPAE_ROUND * unit * qmax) + dac
+
+
+def _check_npae(method, got, want, bound):
+    """The NPAE gate: per query within `bound`; returns the largest share
+    of the bound and the largest difference."""
+    err = _max_err(got, want)
+    share = float((err / bound).max())
+    if not share <= 1.0:
+        raise AssertionError(f"{method} differs from its centralized form "
+                             f"by {share} x its residual bound")
+    return {"share": share, "max_abs_err": float(err.max())}
+
+
+def _max_err(got, want):
+    """Per query, the larger of |mean - mean'| and |var - var'| (float64)."""
+    return ((got[0].double() - want[0].double()).abs()).maximum(
+        (got[1].double() - want[1].double()).abs())
+
+
+NPAE_ITER = ("npae", "npae_star", "nn_npae")
+
+
+def _iterative_npae_bound(method, cfg, A, terms, info, unit):
+    """The per-query bound (NPAE_ROUND) of npae, npae_star or nn_npae on
+    one tile, at `cfg`'s iteration counts, from the tile's NPAE terms (mu,
+    k_A, C_A), its served info (the CBNN mask, the reported residual) and
+    the dtype's unit roundoff: the port's jor / dale rerun on the tile's
+    own systems give each query's final residual, and the largest must be
+    the reported one."""
+    import torch
+    from repro_torch.core.consensus import dale, jor, optimal_omega
+    from repro_torch.core.prediction.decentralized import (_masked_system,
+                                                           _rel_jitter)
+    mu, kA, CA = terms
+    M = kA.shape[0]
+    if method == "nn_npae":
+        key, mk = "dale_residual", info["mask"].to(kA.dtype)
+        H = _rel_jitter(_masked_system(CA, mk.T), cfg.npae_jitter)
+        mu, kA = mu * mk, kA * mk
+        b = torch.stack([mu.T, kA.T], -1)
+        res = dale(H, b, A, cfg.dale_iters)[1]
+        kw = {"A": A, "dac_iters": 0}
+    else:
+        key, H = "jor_residual", _rel_jitter(CA, cfg.npae_jitter)
+        b = torch.stack([mu.T, kA.T], -1)
+        omega = (2.0 / M) * 0.999 if method == "npae" \
+            else optimal_omega(H, cfg.pm_iters)
+        res = jor(H, b, omega, cfg.jor_iters)[1]
+        kw = {"omega": omega, "dac_iters": cfg.dac_iters}
+    r = res[:, -1]
+    if float(r.max()) != float(info[key]):
+        raise AssertionError(f"{method}: recomputed {key} {float(r.max())} "
+                             f"is not the reported {float(info[key])}")
+    return _npae_bound(H, kA, b, r, unit=unit, **kw)
+
+
+def phase_methods(ctx):
+    """CBNN, grBCM and dense NPAE on the paper fleet (see the module
+    docstring)."""
+    import torch
+    from repro_torch.core.gp import pack
+    from repro_torch.core.prediction import PredictionEngine, fit_experts
+    from repro_torch.core.prediction import aggregation as agg
+    from repro_torch.core.prediction.decentralized import _rel_jitter
+    from repro_torch.core.sparse import SparseExperts
+    from repro_torch.core.training import build_training_cache
+    from repro_torch.fleet import FleetConfig, GPFleet, get_trainer
+    from repro_torch.kernels import nll_grad as G
+    from repro_torch.kernels import rbf_gram as RG
+    dev = torch.device(DEVICE)
+    Xp, yp, Xq, fq = paper_data(ctx)
+    n_q = METHOD_TILES * BATCH
+    Xq, fq = Xq[:n_q], fq[:n_q]
+    lt = pack(*TRUE_THETA, dtype=torch.float32, device=dev)
+    cfg = FleetConfig(method="grbcm", stream_mean=True)
+    assert (cfg.num_agents, cfg.graph, cfg.dac_iters, cfg.jor_iters,
+            cfg.dale_iters, cfg.pm_iters, cfg.eta_nn, cfg.chunk) == \
+        (4, "path", 200, 500, 2000, 100, 0.1, BATCH), cfg
+    gen = torch.Generator(dev).manual_seed(ctx["seed"] + 7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    fleet = GPFleet(cfg, device=DEVICE).fit(Xp, yp, generator=gen,
+                                            log_theta0=lt, train=False)
+    torch.cuda.synchronize()
+    fit_ms = 1e3 * (time.perf_counter() - t0)
+    fit_peak = torch.cuda.max_memory_allocated(dev)
+    fa, fc = fleet.fitted_aug, fleet.fitted_comm
+    Ni = Xp.shape[1]
+    if fa.L.shape != (4, 2 * Ni, 2 * Ni) or fc.L.shape != (1, Ni, Ni) \
+            or not all(bool(torch.isfinite(f.L).all())
+                       for f in (fleet.fitted, fa, fc)):
+        raise AssertionError("the augmented and communication factors are "
+                             "not finite of the expected shapes")
+    Xc, yc = fleet._comm_data[:2]
+    out = {"agents": 4, "per_agent": Ni, "augmented_per_agent": 2 * Ni,
+           "communication_points": int(Xc.shape[0]), "dtype": "float32",
+           "queries_per_method": n_q, "fit_ms": fit_ms,
+           "fit_peak_memory_bytes": fit_peak, "methods": {}}
+
+    # -- every method, served; the first tile kept for the gates ----------
+    failures = []
+
+    def gate(fn, *args):
+        try:
+            return fn(*args)
+        except AssertionError as e:
+            failures.append(str(e))
+
+    # npae_star from a fleet of its own with enough JOR iterations to
+    # converge (NPAE_STAR_JOR_ITERS, C8): the base experts alone
+    star_cfg = FleetConfig(method="npae_star", stream_mean=True,
+                           jor_iters=NPAE_STAR_JOR_ITERS)
+    star = GPFleet(star_cfg, device=DEVICE).fit(Xp, yp, log_theta0=lt,
+                                                train=False)
+    first = {}
+    matvec_total = 0
+    for method in NEW_METHODS:
+        predict = star.predict if method == "npae_star" else fleet.predict
+        rep, first[method] = _serve_method(predict, method, Xq, fq,
+                                           cfg.chunk, failures)
+        matvec_total += rep["rbf_matvec_launches_per_batch"] * METHOD_TILES
+        out["methods"][method] = rep
+    out["methods"]["npae_star"]["jor_iters"] = NPAE_STAR_JOR_ITERS
+
+    # -- DAC family == centralized form, same mask (DAC_ROUND) -----------
+    eng, Xt = fleet.engine, Xq[:BATCH]
+    pv = fleet.fitted.prior_var
+    mu, var = eng._moments(fleet.fitted, Xt)
+    mu_a, var_a = eng._moments(fa, Xt)
+    mu_c, var_c = (t[0] for t in eng._moments(fc, Xt))
+    shares = {}
+    for method in ("grbcm", "nn_grbcm", "nn_poe", "nn_gpoe", "nn_bcm",
+                   "nn_rbcm"):
+        mask = first[method][2].get("mask")
+        base = method[3:] if method.startswith("nn_") else method
+        if base == "grbcm":
+            want = agg.grbcm(mu_a, var_a, mu_c, var_c, mask=mask)
+            sc = _dac_scales(method, mu_a, var_a, pv, mask, mu_c, var_c)
+        else:
+            fn = getattr(agg, base)
+            want = fn(mu, var, pv, mask=mask) if base in ("bcm", "rbcm") \
+                else fn(mu, var, mask=mask)
+            sc = _dac_scales(method, mu, var, pv, mask)
+        shares[method] = gate(_check_dac_vs_cen, method, first[method][:2],
+                              want, sc, cfg.dac_iters, 4)
+    # the centralized forms the gates use are what cen_grbcm serves
+    if not all(torch.equal(g, w) for g, w in zip(
+            first["cen_grbcm"][:2], agg.grbcm(mu_a, var_a, mu_c, var_c))):
+        raise AssertionError("cen_grbcm is not aggregation.grbcm of the "
+                             "engine's moments")
+
+    # -- NPAE family == its centralized solve, within the residual bound --
+    terms = eng._terms(fleet.fitted, Xt)
+    cen_npae = first["cen_npae"][:2]
+    if not all(torch.equal(g, w) for g, w in zip(
+            cen_npae, agg.npae(*terms, pv))):
+        raise AssertionError("cen_npae is not aggregation.npae of the "
+                             "engine's NPAE terms")
+    star_terms = star.engine._terms(star.fitted, Xt)
+    cens = {"npae": cen_npae, "npae_star": agg.npae(*star_terms, pv),
+            "nn_npae": agg.npae(*terms, pv,
+                                mask=first["nn_npae"][2]["mask"])}
+    bounds32, npae_bound = {}, {}
+    for method in NPAE_ITER:
+        fl, tm = (star, star_terms) if method == "npae_star" \
+            else (fleet, terms)
+        bounds32[method] = _iterative_npae_bound(
+            method, fl.config, fl.A, tm, first[method][2], UNIT)
+        shares[method] = gate(_check_npae, method, first[method][:2],
+                              cens[method], bounds32[method])
+        npae_bound[method] = {"min": float(bounds32[method].min()),
+                              "median": float(bounds32[method].median())}
+    out["dec_vs_cen_share_of_bound"] = shares
+    out["npae_bound"] = npae_bound
+    del terms, star_terms, cens, star
+
+    # -- the cross-Gram cache: the default guard raises, a raised limit ---
+    # -- serves npae as without the cache ---------------------------------
+    try:
+        fit_experts(lt, Xp, yp, cache_cross=True)
+        raise AssertionError("cache_cross at the paper fleet passed the "
+                             "default 1,024 MB guard")
+    except ValueError as e:
+        if "cache_cross would materialize" not in str(e):
+            raise
+        guard = str(e).split(";")[0]
+    t0 = time.perf_counter()
+    fcc = fit_experts(lt, Xp, yp, cache_cross=True,
+                      cross_cache_limit_mb=CROSS_CACHE_LIMIT_MB)
+    torch.cuda.synchronize()
+    cc_fit_ms = 1e3 * (time.perf_counter() - t0)
+    ecc = PredictionEngine(fcc, fleet.A, chunk=cfg.chunk,
+                           dac_iters=cfg.dac_iters, jor_iters=cfg.jor_iters,
+                           npae_jitter=cfg.npae_jitter, device=DEVICE)
+    ecc.predict("npae", Xt)                                   # warm-up
+    torch.cuda.synchronize()
+    cc_ms = []
+    for i in range(METHOD_TILES):
+        t0 = time.perf_counter()
+        got = ecc.predict("npae", Xq[i * BATCH:(i + 1) * BATCH])
+        torch.cuda.synchronize()
+        cc_ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            muN, kA, CA = eng._terms(fleet.fitted, Xt)
+            H = _rel_jitter(CA, cfg.npae_jitter)
+            bound = _npae_bound(H, kA, torch.stack([muN.T, kA.T], -1),
+                                0.0, cfg.dac_iters,
+                                omega=(2.0 / 4) * 0.999)
+            shares["npae_cache_cross"] = gate(
+                _check_npae, "npae with cache_cross", got[:2],
+                first["npae"][:2], bound)
+            del muN, kA, CA, H
+    out["cache_cross"] = {
+        "default_guard": guard, "limit_mb": CROSS_CACHE_LIMIT_MB,
+        "kcross_bytes": fcc.Kcross.numel() * fcc.Kcross.element_size(),
+        "fit_ms": cc_fit_ms, "npae_batch_ms": cc_ms,
+        "npae_mean_batch_ms": sum(cc_ms) / len(cc_ms)}
+    del fcc, ecc
+    torch.cuda.empty_cache()
+
+    # -- one tile per method against the same port in float64 -------------
+    kw = dict(log_theta0=lt.double(), train=False)
+    f64 = GPFleet(cfg, device=DEVICE).fit(
+        Xp.double(), yp.double(), comm_data=(Xc.double(), yc.double()), **kw)
+    star64 = GPFleet(star_cfg, device=DEVICE).fit(Xp.double(), yp.double(),
+                                                  **kw)
+    tile64 = {method: (star64 if method == "npae_star" else f64).predict(
+        Xt.double(), method=method) for method in NEW_METHODS}
+    # npae_star: each run within its residual bound of the exact solve, so
+    # the two within the sum of their bounds
+    star_bound = bounds32["npae_star"] + _iterative_npae_bound(
+        "npae_star", star_cfg, star64.A,
+        star64.engine._terms(star64.fitted, Xt.double()),
+        tile64["npae_star"][2], 2.0 ** -53)
+    f32_vs_f64 = {}
+    for method in NEW_METHODS:
+        m64, v64, _ = tile64[method]
+        m32, v32 = first[method][:2]
+        em = (m32.double() - m64).abs()
+        ev = (v32.double() - v64).abs()
+        rep = {"max_abs_mean": float(em.max()), "max_abs_var": float(ev.max()),
+               "max_share_of_fixed_tolerance": float(
+                   (em / F32_MEAN_TOL).maximum(ev / F32_VAR_TOL).max())}
+        tol_m = torch.full_like(em, F32_MEAN_TOL)
+        tol_v = torch.full_like(ev, F32_VAR_TOL)
+        if method == "npae_star":
+            tol_m, tol_v = tol_m.maximum(star_bound), \
+                tol_v.maximum(star_bound)
+            rep["max_share_of_tolerance"] = float(
+                (em / tol_m).maximum(ev / tol_v).max())
+            rep["bound_min"] = float(star_bound.min())
+            rep["bound_median"] = float(star_bound.median())
+        f32_vs_f64[method] = rep
+        if not (bool((em <= tol_m).all()) and bool((ev <= tol_v).all())):
+            failures.append(f"{method}: float32 tile {rep} from float64 "
+                            f"beyond its tolerance")
+    out["f32_vs_f64_first_tile"] = f32_vs_f64
+    del f64, star64, tile64, bounds32, star_bound
+    torch.cuda.empty_cache()
+
+    # -- gapx and dec-gapx at 16,200 points per agent ---------------------
+    # the registry's training loops on the fleet's augmented data, as
+    # GPFleet.fit(train=True, grad_fn="fused") runs them, without its
+    # serving factorization (three iterations from theta0 leave the float32
+    # Cholesky of 8,100 points at an unconverged theta to chance). "fused"
+    # forces the cached-geometry gradient through nll_grad past the
+    # reference's 4,096 MB guard: the diff^2 stacks take 8,009 MB here, and
+    # by default both packages would take autodiff gradients instead
+    Xa, ya = fleet._comm_data[2:]
+    th0 = cfg.theta0
+    lt0 = pack(list(th0[:-2]), th0[-2], th0[-1], dtype=torch.float32,
+               device=dev)
+    train = {}
+    for trainer in ("gapx", "dec-gapx"):
+        tcfg = FleetConfig(trainer=trainer, admm_iters=GAPX_ITERS,
+                           kappa=GAPX_KAPPA, lipschitz=GAPX_KAPPA)
+        spec = get_trainer(trainer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        G.reset_launches()
+        t0 = time.perf_counter()
+        lt_t, thetas, info = spec.run(tcfg, lt0, Xa, ya, fleet.A,
+                                      grad_fn="fused")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = G.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        if launches != GAPX_ITERS:
+            raise AssertionError(f"{trainer}: nll_grad launched {launches} "
+                                 f"times in {GAPX_ITERS} iterations")
+        t0 = time.perf_counter()
+        build_training_cache(Xa, ya)
+        torch.cuda.synchronize()
+        cache_s = time.perf_counter() - t0
+        train[trainer] = {
+            "iters": GAPX_ITERS, "kappa": tcfg.kappa,
+            "lipschitz": tcfg.lipschitz, "points_per_agent": int(Xa.shape[1]),
+            "nll_grad_launches": launches, "run_ms": 1e3 * run_s,
+            "ms_per_iteration": 1e3 * (run_s - cache_s) / GAPX_ITERS,
+            "training_cache_ms": 1e3 * cache_s, "peak_memory_bytes": peak,
+            "theta0": list(th0), "theta": torch.exp(lt_t).tolist(),
+            "thetas_per_agent": torch.exp(thetas).tolist(),
+            "theta_finite": bool(torch.isfinite(thetas).all()),
+            "residuals": info["residuals"].tolist()}
+        ctx["launches_by_path"]["nll_grad"][trainer] = launches
+        if not train[trainer]["theta_finite"]:
+            failures.append(f"{trainer}: non-finite theta after "
+                            f"{GAPX_ITERS} iterations")
+        del lt_t, thetas, info
+        torch.cuda.empty_cache()
+    out["train"] = train
+
+    # -- grbcm and nn_rbcm from the sparse m = 512 fleet (float64 data) ----
+    scfg = FleetConfig(method="grbcm", sparse_m=SPARSE_M, stream_mean=True)
+    kw = dict(comm_data=(Xc.double(), yc.double()), log_theta0=lt.double(),
+              train=False)
+    GPFleet(scfg, device=DEVICE).fit(Xp.double(), yp.double(), **kw)
+    torch.cuda.synchronize()
+    RG.reset_launches()
+    t0 = time.perf_counter()
+    sfl = GPFleet(scfg, device=DEVICE).fit(Xp.double(), yp.double(), **kw)
+    torch.cuda.synchronize()
+    sfit_ms = 1e3 * (time.perf_counter() - t0)
+    panels = 2 * -(-Ni // KMN_PANEL) + -(-2 * Ni // KMN_PANEL)
+    if RG.launches != panels or not isinstance(sfl.fitted_aug,
+                                               SparseExperts):
+        raise AssertionError(f"the sparse grbcm fit launched rbf_gram "
+                             f"{RG.launches} times for {panels} panels")
+    ctx["launches_by_path"]["rbf_gram"]["methods_sparse_grbcm"] = \
+        RG.launches
+    sparse = {"fit_ms": sfit_ms, "rbf_gram_launches": RG.launches,
+              "panels": panels}
+    for method in ("grbcm", "nn_rbcm"):
+        rep, _ = _serve_method(sfl.predict, method, Xq.double(), fq,
+                               scfg.chunk, failures)
+        matvec_total += rep["rbf_matvec_launches_per_batch"] * METHOD_TILES
+        sparse[method] = rep
+    out["sparse_m512"] = sparse
+    del sfl
+    ctx["launches_by_path"]["rbf_matvec"]["methods"] = int(matvec_total)
+    ctx["methods_fleet"] = fleet
+    torch.cuda.empty_cache()
+    if failures:
+        # the phase fails; its measurements are printed first
+        emit({"phase": "methods", "report_of_a_failed_phase": True, **out})
+        raise AssertionError("; ".join(failures))
+    return out
 
 
 def phase_train(ctx):
@@ -1238,7 +1829,8 @@ def phase_online(ctx):
     from repro_torch.core.consensus import is_connected
     from repro_torch.core.gp import pack
     from repro_torch.core.online import OnlineExperts, refit
-    from repro_torch.core.online.experts import _cho_solve, _fwd_solve
+    from repro_torch.core.gp.nll import cho_solve
+    from repro_torch.core.online.experts import _fwd_solve
     from repro_torch.core.prediction import PredictionEngine
     from repro_torch.fleet import FleetConfig, GPFleet
     from repro_torch.kernels import cholupdate as C
@@ -1318,7 +1910,7 @@ def phase_online(ctx):
                                                shift=1, active=full), 5,
                       warmup=1)
     solves_ms = cuda_ms(lambda: (_fwd_solve(st.L, st.yw),
-                                 _cho_solve(st.L, st.yw)), 5, warmup=1)
+                                 cho_solve(st.L, st.yw)), 5, warmup=1)
 
     # the streamed windows against a float32 and a float64 refit of them
     ref32 = refit(st)
@@ -1842,8 +2434,10 @@ def phase_profile(ctx):
     one DEC-apx-GP iteration of the training path (from the trained
     theta), one observe round and one served batch of the streaming fleet,
     one sparse fit of the 100k fleet, one served rBCM batch of the sparse
-    paper fleet, and one LM prefill and one decode step (over the prefill's
-    cache, rewritten in place at the same slot), each traced alone."""
+    paper fleet, one 256-query tile of npae, nn_npae and grbcm from the
+    methods phase's fleet, and one LM prefill and one decode step (over
+    the prefill's cache, rewritten in place at the same slot), each traced
+    alone."""
     from repro_torch.core.training import train_dec_apx_gp
     from repro_torch.fleet import GPFleet
     from repro_torch.launch import steps
@@ -1856,6 +2450,7 @@ def phase_profile(ctx):
     Xp, yp, _, _ = paper_data(ctx)
     cfg = fleet.config
     online, (x1, y1) = ctx["online_fleet"], ctx["online_round"]
+    mfleet = ctx["methods_fleet"]
     return {"batch": BATCH,
             "serve_batch": _profiled(lambda: fleet.predict(Xb),
                                      "rbf_matvec"),
@@ -1877,6 +2472,12 @@ def phase_profile(ctx):
                 lambda: GPFleet(cfg, device=DEVICE).fit(
                     Xp, yp, log_theta0=fleet.fitted.log_theta, train=False),
                 "potrf"),
+            "npae_tile": _profiled(
+                lambda: mfleet.predict(Xb, method="npae"), "trsm"),
+            "nn_npae_tile": _profiled(
+                lambda: mfleet.predict(Xb, method="nn_npae"), "trsm"),
+            "grbcm_tile": _profiled(
+                lambda: mfleet.predict(Xb, method="grbcm"), "rbf_matvec"),
             "lm_prefill": _profiled(lambda: prefill(model, prompts),
                                     "flash_fwd"),
             "lm_decode_step": _profiled(
@@ -1889,8 +2490,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one served batch and the serve "
                          "fit, one ADMM iteration, one observe round, one "
-                         "sparse fit, one sparse served batch, one LM "
-                         "prefill and one decode step with torch.profiler")
+                         "sparse fit, one sparse served batch, one npae, "
+                         "nn_npae and grbcm tile, one LM prefill and one "
+                         "decode step with torch.profiler")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1905,12 +2507,14 @@ def main(argv=None) -> int:
         return 1
 
     card = card_line()
-    ctx = {"seed": args.seed, "launches": {}}
+    ctx = {"seed": args.seed, "launches": {},
+           "launches_by_path": {"rbf_matvec": {}, "nll_grad": {},
+                                "rbf_gram": {}}}
     failed = []
     phases = [("build", phase_build), ("kernels", phase_kernels),
-              ("serve", phase_serve), ("train", phase_train),
-              ("online", phase_online), ("sparse", phase_sparse),
-              ("lm", phase_lm)]
+              ("serve", phase_serve), ("methods", phase_methods),
+              ("train", phase_train), ("online", phase_online),
+              ("sparse", phase_sparse), ("lm", phase_lm)]
     if args.profile:
         phases.append(("profile", phase_profile))
     for name, fn in phases:
@@ -1925,6 +2529,9 @@ def main(argv=None) -> int:
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
+    main_path = {"rbf_matvec": "serve", "nll_grad": "train",
+                 "cholupdate": "online", "rbf_gram": "sparse",
+                 "flash_attention": "lm"}
     rows = []
     for name, replaces in (("rbf_matvec", "src/repro/kernels/rbf_matvec.py:46"),
                            ("nll_grad", "src/repro/kernels/nll_grad.py:73"),
@@ -1941,6 +2548,8 @@ def main(argv=None) -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
+            "launches_by_path": {main_path[name]: ctx["launches"][name],
+                                 **ctx["launches_by_path"].get(name, {})},
             **({"device_ms": k["device_ms"]} if "device_ms" in k else {})})
     emit({"kernels": rows})
     print(card, flush=True)

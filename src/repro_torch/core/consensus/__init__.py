@@ -1,11 +1,17 @@
 from .dac import dac, dac_residual, dac_until
+from .dale import dale
+from .flooding import flood
 from .graph import (attach_agent, complete_graph, connected_components,
-                    cycle_graph, degree_matrix, is_connected, laplacian,
-                    max_degree, path_graph, perron, random_connected_graph,
-                    remove_agent)
+                    cycle_graph, degree_matrix, diameter, is_connected,
+                    laplacian, max_degree, path_graph, perron,
+                    random_connected_graph, remove_agent)
+from .jor import jor
+from .power_method import extreme_eigs, optimal_omega, power_method
 
 __all__ = ["path_graph", "cycle_graph", "complete_graph",
            "random_connected_graph", "degree_matrix", "laplacian",
-           "max_degree", "perron", "is_connected", "connected_components",
-           "attach_agent", "remove_agent",
-           "dac", "dac_residual", "dac_until"]
+           "max_degree", "perron", "diameter", "is_connected",
+           "connected_components", "attach_agent", "remove_agent",
+           "dac", "dac_residual", "dac_until",
+           "jor", "power_method", "extreme_eigs", "optimal_omega",
+           "dale", "flood"]

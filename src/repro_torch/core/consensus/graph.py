@@ -98,9 +98,10 @@ def perron(A: torch.Tensor, eps) -> torch.Tensor:
     return eye - eps * laplacian(A)
 
 
-def _reach(A, alive=None) -> np.ndarray:
-    """Boolean reachability (M, M) by Floyd-Warshall on the dense graph,
-    restricted to the live subgraph when `alive` (M,) is given."""
+def _all_pairs_dist(A, alive=None) -> np.ndarray:
+    """Shortest-path hop counts (M, M) by Floyd-Warshall on the dense
+    graph (inf between components), restricted to the live subgraph when
+    `alive` (M,) is given."""
     An = np.asarray(torch.as_tensor(A).cpu()) > 0
     M = An.shape[0]
     if alive is not None:
@@ -111,7 +112,17 @@ def _reach(A, alive=None) -> np.ndarray:
     dist[An] = 1
     for k in range(M):
         dist = np.minimum(dist, dist[:, k:k + 1] + dist[k:k + 1, :])
-    return np.isfinite(dist)
+    return dist
+
+
+def _reach(A, alive=None) -> np.ndarray:
+    """Boolean reachability (M, M)."""
+    return np.isfinite(_all_pairs_dist(A, alive))
+
+
+def diameter(A) -> float:
+    """Max shortest-path distance diam(G); inf if disconnected."""
+    return float(_all_pairs_dist(A).max())
 
 
 def is_connected(A) -> bool:

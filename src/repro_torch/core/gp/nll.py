@@ -47,16 +47,25 @@ def cholesky(C: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[..., None, None], L, torch.nan)
 
 
+def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(L L^T)^-1 b for lower L (..., N, N), b (..., N) or (..., N, K):
+    two triangular solves, the reference's cho_solve. Not
+    torch.cholesky_solve: on an H100 it raised "invalid argument" for a
+    float64 batch of four 8,100-point agents, one agent at a time it did
+    not (ROADMAP C5)."""
+    vec = b.dim() == L.dim() - 1
+    B = b[..., None] if vec else b
+    X = torch.linalg.solve_triangular(
+        L.mT, torch.linalg.solve_triangular(L, B, upper=False), upper=True)
+    return X[..., 0] if vec else X
+
+
 def nll_from_cov(C: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """NLL given an already-built covariance C — the one Cholesky body
     shared by `nll` and the cached-geometry path (core.training.cache)."""
     n = y.shape[-1]
     L = cholesky(C)
-    # two triangular solves, the reference's cho_solve: on an H100,
-    # torch.cholesky_solve raised "invalid argument" for a float64 batch of
-    # four 8,100-point agents (one agent at a time it did not)
-    z = torch.linalg.solve_triangular(L, y[..., None], upper=False)
-    alpha = torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
+    alpha = cho_solve(L, y)
     logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
     return 0.5 * ((y * alpha).sum(-1) + logdet + n * LOG_2PI)
 

@@ -45,7 +45,7 @@ import torch
 from ...device import resolve_device
 from ...kernels.ops import cholupdate_fleet
 from ..gp.kernel import se_kernel, unpack
-from ..gp.nll import cholesky
+from ..gp.nll import cho_solve, cholesky
 from ..prediction.engine import FittedExperts
 
 _SENTINEL = 1e6
@@ -67,17 +67,6 @@ def _s_diag(log_theta, jitter):
 def _fwd_solve(L, b):
     """L sol = b (L lower) for b (..., n)."""
     return torch.linalg.solve_triangular(L, b[..., None], upper=False)[..., 0]
-
-
-def _bwd_solve(L, b):
-    """L^T sol = b."""
-    return torch.linalg.solve_triangular(L.mT, b[..., None],
-                                         upper=True)[..., 0]
-
-
-def _cho_solve(L, b):
-    """alpha = (L L^T)^{-1} b by the two triangular solves."""
-    return _bwd_solve(L, _fwd_solve(L, b))
 
 
 class OnlineExperts(NamedTuple):
@@ -164,7 +153,7 @@ def refit(state: OnlineExperts) -> OnlineExperts:
     C = _window_cov(state.log_theta, state.jitter, state.Xw, valid)
     L = cholesky(C).contiguous()
     del C
-    alpha = _cho_solve(L, state.yw * valid.to(state.yw.dtype))
+    alpha = cho_solve(L, state.yw * valid.to(state.yw.dtype))
     return state._replace(L=L, alpha=alpha)
 
 
@@ -234,12 +223,12 @@ def _observe_core(log_theta, jitter, Xw, yw, L, count, xs, ys):
     Xw, yw, L = _evict_oldest_shift(log_theta, jitter, Xw, yw, L, full)
     count = torch.where(full, count - 1, count)
     Xw, yw, L = _append_one(log_theta, jitter, Xw, yw, L, count, xs, ys)
-    return Xw, yw, L, _cho_solve(L, yw), count + 1
+    return Xw, yw, L, cho_solve(L, yw), count + 1
 
 
 def _evict_core(log_theta, jitter, Xw, yw, L, count):
     Xw, yw, L = _evict_oldest_shift(log_theta, jitter, Xw, yw, L, count > 0)
-    return Xw, yw, L, _cho_solve(L, yw), torch.clamp(count - 1, min=0)
+    return Xw, yw, L, cho_solve(L, yw), torch.clamp(count - 1, min=0)
 
 
 def _agent_parts(state: OnlineExperts, agent: int):

@@ -1,8 +1,8 @@
 """Centralized aggregation of GP experts (paper §2.3.2): PoE, gPoE (eq.
-12-13), BCM and rBCM (eq. 14-15) — the server-side references the
-decentralized methods converge to — and the NPAE solve (eq. 20-21) that
-`npae_sparse` serves. Counterpart of `repro.core.prediction.aggregation`
-for these five (grBCM waits for ROADMAP queue A item 3).
+12-13), BCM, rBCM (eq. 14-15), grBCM (eq. 16-17) and NPAE (eq. 20-21) —
+the server-side references the decentralized methods converge to (zero
+approximation error for the DAC-based ones). Counterpart of
+`repro.core.prediction.aggregation`.
 
 Each takes per-agent moments (M, Nt) and an optional agent mask (M,) or
 (M, Nt); masked-out agents contribute nothing and M_eff = sum(mask).
@@ -49,6 +49,21 @@ def rbcm(mu, var, prior_var, mask=None):
     beta = 0.5 * (torch.log(prior_var) - torch.log(var)) * m
     prec = (beta / var).sum(0) + (1.0 - beta.sum(0)) / prior_var
     return (beta * mu / var).sum(0) / prec, 1.0 / prec
+
+
+def grbcm(mu_aug, var_aug, mu_c, var_c, mask=None):
+    """grBCM (eq. 16-17): experts use augmented moments; the communication
+    expert (mu_c, var_c) anchors consistency. beta_1 = 1,
+    beta_i = 0.5(log var_c - log var_{+i}) for i >= 2."""
+    m = _mask_of(mu_aug, mask)
+    beta = 0.5 * (torch.log(var_c)[None] - torch.log(var_aug))
+    beta[0] = 1.0
+    beta = beta * m
+    sum_beta = beta.sum(0)
+    prec = (beta / var_aug).sum(0) + (1.0 - sum_beta) / var_c
+    mean = ((beta * mu_aug / var_aug).sum(0)
+            - (sum_beta - 1.0) * mu_c / var_c) / prec
+    return mean, 1.0 / prec
 
 
 def npae(mu, kA, CA, prior_var, mask=None, jitter=1e-8):

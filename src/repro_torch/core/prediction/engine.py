@@ -1,42 +1,50 @@
 """Factor-cached, query-tiled prediction engine — the serving hot path.
 
-Counterpart of `repro.core.prediction.engine` for the DAC family:
+Counterpart of `repro.core.prediction.engine` (replicated mode):
 
   FittedExperts    — per-agent Cholesky L_i and weights alpha_i =
                      C_i^{-1} y_i, computed once after training
-                     (`fit_experts`), or carried over from the JAX
-                     package's fit (`FittedExperts.from_numpy`).
+                     (`fit_experts`, optionally with the NPAE cross-Gram
+                     cache), or carried over from the JAX package's fit
+                     (`FittedExperts.from_numpy`).
   map_query_tiles  — a loop over fixed-size query tiles: peak memory is
                      O(chunk * M * Ni) at any Nt.
-  PredictionEngine — serving front-end: poe gpoe bcm rbcm and their
-                     centralized references cen_*, from FittedExperts or
-                     from sparse pseudo-representation experts
-                     (core.sparse.SparseExperts, isinstance dispatch), and
-                     npae_sparse, the low-rank NPAE of sparse fleets. With
-                     `stream_mean=True` the posterior means ride the fused
-                     Gram-matvec kernel (kernels.rbf_matvec), one launch
-                     per query tile for the whole fleet. `swap_experts`
+  PredictionEngine — serving front-end: all 13 decentralized methods, the
+                     centralized references cen_*, and npae_sparse, from
+                     FittedExperts or from sparse pseudo-representation
+                     experts (core.sparse.SparseExperts, isinstance
+                     dispatch; the dense NPAE family needs FittedExperts).
+                     With `stream_mean=True` the posterior means ride the
+                     fused Gram-matvec kernel (kernels.rbf_matvec), one
+                     launch per query tile and expert set. `swap_experts`
                      replaces the served factors of a streaming fleet
                      (core.online, dense only) in place; `rewire` applies
                      a membership change (new adjacency, new M).
 
 PyTorch runs eagerly, so the reference's jit cache and trace counters have
-no counterpart here.
+no counterpart here. The degraded-mode fault plans are not ported yet
+(ROADMAP queue A item 8).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Mapping, NamedTuple
 
+import numpy as np
 import torch
 
 from ...device import resolve_device
 from ..gp.kernel import unpack
 from . import aggregation as agg
+from .cbnn import _mask_from_scores, cbnn_mask_cached
 from .decentralized import (dec_bcm_from_moments, dec_gpoe_from_moments,
+                            dec_grbcm_from_moments, dec_nn_npae_from_terms,
+                            dec_npae_from_terms, dec_npae_star_from_terms,
                             dec_poe_from_moments, dec_rbcm_from_moments)
-from .local import chol_factors, local_moments_cached, stream_means
+from .local import (chol_factors, cross_gram, local_moments_cached,
+                    npae_terms_cached, stream_means)
 from ..sparse import (SparseExperts, npae_terms_lowrank,
-                      sparse_moments_cached)
+                      sparse_moments_cached, sparse_scores)
 
 
 class FittedExperts(NamedTuple):
@@ -46,6 +54,8 @@ class FittedExperts(NamedTuple):
     yp: torch.Tensor          # (M, Ni)
     L: torch.Tensor           # (M, Ni, Ni)  chol(K(X_i, X_i) + sigma_eps^2 I)
     alpha: torch.Tensor       # (M, Ni)      C_i^{-1} y_i
+    Kcross: torch.Tensor | None = None   # (M, M, Ni, Ni) cross-agent Gram
+    #                                      blocks (fit_experts cache_cross)
 
     @property
     def num_agents(self) -> int:
@@ -57,22 +67,52 @@ class FittedExperts(NamedTuple):
         return sigma_f**2
 
     def to(self, device) -> "FittedExperts":
-        return FittedExperts(*(t.to(device) for t in self))
+        return FittedExperts(*(None if t is None else t.to(device)
+                               for t in self))
 
     @classmethod
     def from_numpy(cls, arrays: Mapping, device=None) -> "FittedExperts":
         """Carry a fitted fleet across from numpy arrays keyed by field name
-        (log_theta, Xp, yp, L, alpha) — e.g. the JAX package's
-        FittedExperts via `np.asarray` — onto `device` (default: cuda)."""
+        (log_theta, Xp, yp, L, alpha and optionally Kcross) — e.g. the JAX
+        package's FittedExperts via `np.asarray` — onto `device` (default:
+        cuda). A missing Kcross, or the reference's None, leaves it None."""
         dev = resolve_device(device)
-        return cls(*(torch.tensor(arrays[name], device=dev)
-                     for name in cls._fields))
+
+        def field(name):
+            a = arrays.get(name)
+            if a is None or np.asarray(a).dtype == object:
+                return None
+            return torch.tensor(np.asarray(a), device=dev)
+        return cls(*(field(name) for name in cls._fields))
 
 
-def fit_experts(log_theta, Xp, yp, jitter: float = 1e-8) -> FittedExperts:
-    """Factorize every agent's kernel matrix once; reused by all methods."""
+def fit_experts(log_theta, Xp, yp, jitter: float = 1e-8,
+                cache_cross: bool = False,
+                cross_cache_limit_mb: float = 1024.0) -> FittedExperts:
+    """Factorize every agent's kernel matrix once; reused by all methods.
+
+    `cache_cross=True` also precomputes the (M, M, Ni, Ni) cross-agent Gram
+    blocks that the NPAE family otherwise assembles for every query tile,
+    trading O(M^2 Ni^2) memory for the dominant per-request cost. The size
+    is checked against `cross_cache_limit_mb` before anything is built
+    (the reference checks it after factorizing); raise the limit
+    explicitly for big fleets."""
+    if cache_cross:
+        M, Ni = Xp.shape[0], Xp.shape[1]
+        est_bytes = M * M * Ni * Ni * Xp.element_size()
+        if est_bytes / 2**20 > cross_cache_limit_mb:
+            raise ValueError(
+                f"cache_cross would materialize {est_bytes:,} bytes "
+                f"({est_bytes / 2**20:.2f} MB) of cross-agent Gram blocks "
+                f"(M={M}, Ni={Ni}) > limit {cross_cache_limit_mb:.0f} MB; "
+                f"raise cross_cache_limit_mb, serve without the cache, or "
+                f"serve the NPAE family from sparse pseudo-representations "
+                f"instead — FleetConfig(sparse_m=...) with method "
+                f"'npae_sparse' needs no cross-Gram at all "
+                f"(docs/sparse_experts.md)")
     L, alpha = chol_factors(log_theta, Xp, yp, jitter)
-    return FittedExperts(log_theta, Xp, yp, L, alpha)
+    Kcross = cross_gram(log_theta, Xp) if cache_cross else None
+    return FittedExperts(log_theta, Xp, yp, L, alpha, Kcross)
 
 
 def map_query_tiles(tile_fn, Xs, chunk: int):
@@ -103,33 +143,59 @@ _DAC_CORES = {"poe": dec_poe_from_moments, "gpoe": dec_gpoe_from_moments,
 
 class PredictionEngine:
     """Serving front-end over FittedExperts or SparseExperts: query-tiled
-    DAC-family methods and the low-rank NPAE.
+    decentralized methods and their centralized references.
 
-    Decentralized: poe gpoe bcm rbcm (paper Alg. 5-8), from dense or
-    sparse factors; npae_sparse from sparse factors only.
-    Centralized references: cen_poe cen_gpoe cen_bcm cen_rbcm.
+    Decentralized: poe gpoe bcm rbcm grbcm npae npae_star and the CBNN
+    variants nn_poe nn_gpoe nn_bcm nn_rbcm nn_grbcm nn_npae (paper Alg.
+    5-18); npae_sparse from sparse factors only.
+    Centralized references: cen_poe cen_gpoe cen_bcm cen_rbcm cen_grbcm
+    cen_npae.
+
+    The grbcm variants also need `fitted_aug` (the augmented experts) and
+    `fitted_comm` (the communication expert as a 1-agent FittedExperts),
+    paper eq. 16-17; CBNN scores always come from the BASE local datasets
+    (eq. 39 is defined on D_i). The dense NPAE family (npae npae_star
+    nn_npae cen_npae) needs FittedExperts.
 
     The experts and the adjacency move to `device` (default: cuda) at
     construction; queries are moved there per call.
     """
 
-    METHODS = ("poe", "gpoe", "bcm", "rbcm", "npae_sparse",
-               "cen_poe", "cen_gpoe", "cen_bcm", "cen_rbcm")
+    METHODS = ("poe", "gpoe", "bcm", "rbcm", "grbcm", "npae", "npae_star",
+               "nn_poe", "nn_gpoe", "nn_bcm", "nn_rbcm", "nn_grbcm",
+               "nn_npae", "npae_sparse", "cen_poe", "cen_gpoe", "cen_bcm",
+               "cen_rbcm", "cen_grbcm", "cen_npae")
+
+    # exact-NPAE members that need the dense cross-Gram and therefore can
+    # never serve from SparseExperts (npae_sparse is their low-rank stand-in)
+    _DENSE_ONLY = ("npae", "npae_star", "nn_npae", "cen_npae")
 
     def __init__(self, fitted: FittedExperts | SparseExperts, A, *,
                  chunk: int = 256, dac_iters: int = 200,
-                 stream_mean: bool = False, npae_jitter: float = 1e-6,
-                 device=None):
+                 jor_iters: int = 500, dale_iters: int = 2000,
+                 pm_iters: int = 100, eta_nn: float = 0.1,
+                 npae_jitter: float = 1e-6,
+                 fitted_aug: FittedExperts | SparseExperts | None = None,
+                 fitted_comm: FittedExperts | SparseExperts | None = None,
+                 stream_mean: bool = False, device=None):
         self.device = resolve_device(device)
         self.fitted = fitted.to(self.device)
+        self.fitted_aug = None if fitted_aug is None \
+            else fitted_aug.to(self.device)
+        self.fitted_comm = None if fitted_comm is None \
+            else fitted_comm.to(self.device)
         self.A = torch.as_tensor(A).to(self.device, torch.float64)
         if self.A.shape[0] != self.fitted.num_agents:
             raise ValueError(f"adjacency for {self.A.shape[0]} agents vs "
                              f"{self.fitted.num_agents} fitted agents")
         self.chunk = int(chunk)
         self.dac_iters = int(dac_iters)
-        self.stream_mean = bool(stream_mean)
+        self.jor_iters = int(jor_iters)
+        self.dale_iters = int(dale_iters)
+        self.pm_iters = int(pm_iters)
+        self.eta_nn = float(eta_nn)
         self.npae_jitter = float(npae_jitter)
+        self.stream_mean = bool(stream_mean)
 
     def _queries(self, Xs):
         """Queries as a tensor on the engine's device in the experts'
@@ -137,47 +203,112 @@ class PredictionEngine:
         return torch.as_tensor(Xs, dtype=self.fitted.Xp.dtype,
                                device=self.device)
 
+    # -- per-tile computation ------------------------------------------------
+
     def _moments(self, f, Xq):
         """Local expert moments (M, Nt) from dense or sparse factors: the
-        isinstance dispatch that lets every PoE/BCM aggregation serve both
-        fleets."""
+        isinstance dispatch that lets every PoE/BCM/CBNN aggregation serve
+        both fleets."""
         if isinstance(f, SparseExperts):
             return sparse_moments_cached(f.log_theta, f.Z, f.Lmm, f.LS, f.c,
                                          Xq, stream_mean=self.stream_mean)
         return local_moments_cached(f.log_theta, f.Xp, f.L, f.alpha, Xq,
                                     stream_mean=self.stream_mean)
 
+    def _mask(self, f, Xq):
+        """CBNN participation mask (eq. 39) from dense or sparse factors:
+        both score forms equal sigma_f^2 - var_i, so eta_nn thresholds are
+        comparable across expert representations."""
+        if isinstance(f, SparseExperts):
+            return _mask_from_scores(
+                sparse_scores(f.log_theta, f.Z, f.Lmm, f.LS, Xq),
+                self.eta_nn)
+        return cbnn_mask_cached(f.log_theta, f.Xp, f.L, Xq, self.eta_nn)[0]
+
+    def _terms(self, f: FittedExperts, Xq):
+        return npae_terms_cached(f.log_theta, f.Xp, f.L, f.alpha, Xq,
+                                 Kcross=f.Kcross)
+
     def _tile(self, method: str, Xq):
-        f = self.fitted
-        pv = f.prior_var
-        if method == "npae_sparse":
+        f, fa, fc = self.fitted, self.fitted_aug, self.fitted_comm
+        A, pv = self.A, f.prior_var
+        nn = method.startswith("nn_")
+        base = method[3:] if nn else method
+        red = {}
+        if method == "nn_npae":
+            # the CBNN scores (eq. 39) are the NPAE terms' k_A
+            mu, kA, CA = self._terms(f, Xq)
+            mask = _mask_from_scores(kA, self.eta_nn)
+            mean, v, info = dec_nn_npae_from_terms(
+                mask, mu, kA, CA, pv, A, dale_iters=self.dale_iters,
+                jitter=self.npae_jitter)
+            red["dale_residual"] = info["dale_residual"]
+            return {"mean": mean, "var": v, "mask_t": mask.T}, red
+        mask = self._mask(f, Xq) if nn else None
+        if base in _DAC_CORES:
+            mu, var = self._moments(f, Xq)
+            mean, v, info = _DAC_CORES[base](mu, var, pv, A,
+                                             iters=self.dac_iters, mask=mask)
+            red["dac_residual"] = info["dac_residuals"][-1]
+        elif base in ("grbcm", "cen_grbcm"):
+            mu_a, var_a = self._moments(fa, Xq)
+            mu_c, var_c = self._moments(fc, Xq)
+            if base == "cen_grbcm":
+                mean, v = agg.grbcm(mu_a, var_a, mu_c[0], var_c[0])
+            else:
+                mean, v, info = dec_grbcm_from_moments(
+                    mu_a, var_a, mu_c[0], var_c[0], A, iters=self.dac_iters,
+                    mask=mask)
+                red["dac_residual"] = info["dac_residuals"][-1]
+        elif method in ("npae", "npae_star"):
+            mu, kA, CA = self._terms(f, Xq)
+            core = (dec_npae_from_terms if method == "npae"
+                    else partial(dec_npae_star_from_terms,
+                                 pm_iters=self.pm_iters))
+            mean, v, info = core(mu, kA, CA, pv, A, jor_iters=self.jor_iters,
+                                 dac_iters=self.dac_iters,
+                                 jitter=self.npae_jitter)
+            red["dac_residual"] = info["dac_residuals"][-1]
+            red["jor_residual"] = info["jor_residual"]
+        elif method == "npae_sparse":
             # low-rank NPAE: the cross-covariance through the pseudo-points,
             # solved by the same aggregation core as the exact family
             mu, kA, CA = npae_terms_lowrank(f.log_theta, f.Z, f.Lmm, f.LS,
                                             f.c, Xq)
             mean, v = agg.npae(mu, kA, CA, pv, jitter=self.npae_jitter)
-            return {"mean": mean, "var": v}, {}
-        mu, var = self._moments(f, Xq)
-        if method in _DAC_CORES:
-            mean, v, info = _DAC_CORES[method](mu, var, pv, self.A,
-                                               iters=self.dac_iters)
-            return ({"mean": mean, "var": v},
-                    {"dac_residual": info["dac_residuals"][-1]})
-        fn = getattr(agg, method[4:])
-        mean, v = fn(mu, var, pv) if method in ("cen_bcm", "cen_rbcm") \
-            else fn(mu, var)
-        return {"mean": mean, "var": v}, {}
+        elif method == "cen_npae":
+            mu, kA, CA = self._terms(f, Xq)
+            mean, v = agg.npae(mu, kA, CA, pv)
+        else:
+            mu, var = self._moments(f, Xq)
+            fn = getattr(agg, method[4:])
+            mean, v = fn(mu, var, pv) if method in ("cen_bcm", "cen_rbcm") \
+                else fn(mu, var)
+        perq = {"mean": mean, "var": v}
+        if mask is not None:
+            perq["mask_t"] = mask.T                       # query axis leads
+        return perq, red
 
     def predict(self, method: str, Xs):
         """Serve one query batch -> (mean (Nt,), var (Nt,), info).
 
-        info carries the worst-tile final DAC residual ("dac_residual") for
-        the decentralized methods."""
+        info carries the worst-tile final consensus residuals
+        ("dac_residual", "jor_residual", "dale_residual") of the
+        decentralized methods, and the CBNN mask (M, Nt) of the nn_*
+        methods."""
         if method not in self.METHODS:
             raise ValueError(f"unknown prediction method {method!r}; "
                              f"one of {self.METHODS}")
-        if method == "npae_sparse" and not isinstance(self.fitted,
-                                                      SparseExperts):
+        if "grbcm" in method and (self.fitted_aug is None
+                                  or self.fitted_comm is None):
+            raise ValueError("grbcm methods need fitted_aug and fitted_comm")
+        sparse = isinstance(self.fitted, SparseExperts)
+        if sparse and method in self._DENSE_ONLY:
+            raise ValueError(
+                f"{method} needs the dense O(M^2 Ni^2) cross-Gram and is "
+                f"not servable from sparse pseudo-representation experts; "
+                f"use 'npae_sparse' (the low-rank NPAE path)")
+        if method == "npae_sparse" and not sparse:
             raise ValueError(
                 "npae_sparse serves from SparseExperts only — fit with "
                 "FleetConfig(sparse_m=...) (or fit_sparse_experts) to build "
@@ -185,7 +316,11 @@ class PredictionEngine:
         Xs = self._queries(Xs)
         perq, red = map_query_tiles(lambda Xq: self._tile(method, Xq), Xs,
                                     self.chunk)
-        return perq["mean"], perq["var"], red
+        info = dict(red)
+        mask_t = perq.pop("mask_t", None)
+        if mask_t is not None:
+            info["mask"] = mask_t.T
+        return perq["mean"], perq["var"], info
 
     def swap_experts(self, fitted: FittedExperts):
         """Hot-swap the served factors (the streaming case:
@@ -198,22 +333,23 @@ class PredictionEngine:
         if not isinstance(fitted, FittedExperts):
             raise TypeError(f"swap_experts: want FittedExperts, got "
                             f"{type(fitted).__name__}")
+
+        def spec(t):
+            return None if t is None else (t.shape, t.dtype, t.device)
         for name, new, old in zip(FittedExperts._fields, fitted,
                                   self.fitted):
-            if (new.shape, new.dtype, new.device) != \
-                    (old.shape, old.dtype, old.device):
+            if spec(new) != spec(old):
                 raise ValueError(
-                    f"swap_experts: {name} changed from {tuple(old.shape)} "
-                    f"{old.dtype} on {old.device} to {tuple(new.shape)} "
-                    f"{new.dtype} on {new.device} (agent membership or "
-                    f"window geometry) — use rewire()")
+                    f"swap_experts: {name} changed from {spec(old)} to "
+                    f"{spec(new)} (agent membership or window geometry) — "
+                    f"use rewire()")
         self.fitted = fitted
 
     def rewire(self, A, fitted: FittedExperts | None = None):
         """Apply a membership or topology change (core.online.join /
         leave): a new adjacency and optionally a new fleet, on the engine's
-        device. The DAC consensus reads A at every call, so this is all it
-        takes to re-sync it to the new graph."""
+        device. The consensus protocols read A at every call, so this is
+        all it takes to re-sync them to the new graph."""
         experts = fitted if fitted is not None else self.fitted
         A = torch.as_tensor(A)
         if experts.num_agents != A.shape[0]:

@@ -36,7 +36,7 @@ import torch
 
 from ...kernels.ops import kmn_stats_agents, rbf_matvec_agents
 from ..gp.kernel import se_kernel, unpack
-from ..gp.nll import cholesky
+from ..gp.nll import cho_solve, cholesky
 
 
 class SparseExperts(NamedTuple):
@@ -121,17 +121,6 @@ def _tri(L, B):
     return torch.linalg.solve_triangular(L, B, upper=False)
 
 
-def _cho_solve(L, b):
-    """(L L^T)^-1 b by two triangular solves; b (..., m) or (..., m, k).
-
-    Not torch.cholesky_solve: on an H100 it raised "invalid argument" for
-    a float64 batch of factors (ROADMAP C5)."""
-    vec = b.dim() == L.dim() - 1
-    B = b[..., None] if vec else b
-    X = torch.linalg.solve_triangular(L.mT, _tri(L, B), upper=True)
-    return X[..., 0] if vec else X
-
-
 def fit_sparse_experts(log_theta, Xp, yp, Z, jitter: float = 1e-8,
                        block: int = 4096) -> SparseExperts:
     """Factorize every agent's sparse model once. Xp (M, Ni, D),
@@ -163,7 +152,7 @@ def fit_sparse_experts(log_theta, Xp, yp, Z, jitter: float = 1e-8,
     ew, V = torch.linalg.eigh(eye + W)
     Bw = (V * torch.clamp(ew, min=1.0)[..., None, :]) @ V.mT
     LS = Lmm @ cholesky(Bw)
-    c = _cho_solve(LS, b) / sigma_eps**2
+    c = cho_solve(LS, b) / sigma_eps**2
     # qnn = tr(Kmm^-1 B) = tr(W) sigma_eps^2; the true correction is >= 0
     tr_corr = torch.clamp(
         Xp.shape[1] * sigma_f**2

@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from ..gp.kernel import se_kernel
-from .experts import (SparseExperts, _cho_solve, fit_sparse_experts,
+from ..gp.nll import cho_solve
+from .experts import (SparseExperts, fit_sparse_experts,
                       select_inducing)
 
 
@@ -32,7 +33,7 @@ def sparse_npae_factors(log_theta, Z, Lmm, LS, c, Xs):
     U_i = (Kmm^-1 - Sigma^-1) k(Z_i, Xs) and kA_i = k^T U_i.
     """
     ks = se_kernel(Z, Xs[None], log_theta)                      # (M, m, Nt)
-    U = _cho_solve(Lmm, ks) - _cho_solve(LS, ks)
+    U = cho_solve(Lmm, ks) - cho_solve(LS, ks)
     kA = (ks * U).sum(-2)
     return torch.einsum("mnt,mn->mt", ks, c), kA, U
 

@@ -5,7 +5,7 @@ Counterpart of `repro.core.training`. The config-driven entry point is
 the `repro_torch.fleet.TRAINERS` registry. The sharded DEC-apx-GP loop
 waits for the multi-GPU slice (ROADMAP queue A item 7).
 """
-from .admm_centralized import train_apx_gp, train_c_gp
+from .admm_centralized import train_apx_gp, train_c_gp, train_gapx_gp
 from .admm_decentralized import (dec_apx_update, train_dec_apx_gp,
                                  train_dec_c_gp, train_dec_gapx_gp)
 from .cache import (TrainingCache, build_training_cache, cov_from_cache,
@@ -14,7 +14,7 @@ from .factorized import factorized_nll, local_nlls, train_fact_gp
 
 __all__ = [
     "local_nlls", "factorized_nll", "train_fact_gp",
-    "train_c_gp", "train_apx_gp",
+    "train_c_gp", "train_apx_gp", "train_gapx_gp",
     "train_dec_c_gp", "train_dec_apx_gp", "train_dec_gapx_gp",
     "dec_apx_update",
     "TrainingCache", "build_training_cache", "cov_from_cache",

@@ -1,7 +1,6 @@
-"""Centralized ADMM factorized GP training (paper §3): c-GP (eq. 24) and
-apx-GP (eq. 26, Xie et al. 2019); counterpart of
-`repro.core.training.admm_centralized`. gapx-GP (Alg. 1) is apx-GP on
-the grBCM augmented datasets and comes with them (ROADMAP queue A item 3).
+"""Centralized ADMM factorized GP training (paper §3): c-GP (eq. 24),
+apx-GP (eq. 26, Xie et al. 2019) and gapx-GP (Alg. 1, apx-GP on the grBCM
+augmented datasets); counterpart of `repro.core.training.admm_centralized`.
 
 Agent-local quantities live on a leading agent axis (M, ...); the server
 steps (z-update) are means over it. Local NLL gradients go through the
@@ -94,3 +93,13 @@ def train_apx_gp(log_theta0, Xp, yp, rho: float = 500.0, L: float = 5000.0,
         return z, th, psis + rho * (th - z)                     # (26c)
     return _central_loop(step, thetas, psis, rho, iters, aux, diag)
 
+
+
+def train_gapx_gp(log_theta0, Xp_aug, yp_aug, rho: float = 500.0,
+                  L: float = 5000.0, iters: int = 100, grad_fn=None,
+                  diag: bool = False):
+    """gapx-GP (Alg. 1): apx-GP on the augmented datasets D_{+i}, which the
+    caller builds (core.gp.communication_dataset + augment: sample ->
+    flood -> union)."""
+    return train_apx_gp(log_theta0, Xp_aug, yp_aug, rho=rho, L=L,
+                        iters=iters, grad_fn=grad_fn, diag=diag)

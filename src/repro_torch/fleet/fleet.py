@@ -21,6 +21,12 @@ experts (core.sparse, m inducing points per agent, fitted through the
 rbf_gram kernel), served by the DAC family and `npae_sparse`; the
 `fact-sparse` trainer's optimized inducing inputs are the ones served.
 
+The grBCM communication dataset D_c and the augmented datasets D_{+i}
+(paper §2.3.2) are built in `fit` only when something consumes them: a
+`gapx`/`dec-gapx` trainer that runs, or a grbcm-family method, which then
+serves from augmented experts and a one-agent communication expert (dense
+or sparse, as the fleet is).
+
 The fleet runs on `device` (default: cuda; raises when no card is present
 and the caller did not pass device="cpu"). Persistence, training traces
 and the sharded engine are not ported yet (ROADMAP queue A).
@@ -31,7 +37,7 @@ import torch
 
 from ..core.consensus import (complete_graph, cycle_graph, path_graph,
                               random_connected_graph)
-from ..core.gp import pack
+from ..core.gp import augment, communication_dataset, pack
 from ..core.online import (OnlineExperts, from_batch, join, leave,
                            observe_fleet, refit)
 from ..core.prediction import FittedExperts, PredictionEngine, fit_experts
@@ -77,6 +83,9 @@ class GPFleet:
         self.thetas = None             # per-agent hyperparameters (M, K)
         self.train_info = {}           # the trainer's info dict
         self.fitted: FittedExperts | SparseExperts | None = None
+        self.fitted_aug: FittedExperts | SparseExperts | None = None
+        self.fitted_comm: FittedExperts | SparseExperts | None = None
+        self._comm_data = None         # (Xc, yc, Xa, ya) when built
         self._online_state: OnlineExperts | None = None
         self._engine: PredictionEngine | None = None
 
@@ -101,12 +110,24 @@ class GPFleet:
             cfg = self.config
             self._engine = PredictionEngine(
                 self.fitted, self.A, chunk=cfg.chunk,
-                dac_iters=cfg.dac_iters, stream_mean=cfg.stream_mean,
-                npae_jitter=cfg.npae_jitter, device=self.device)
+                dac_iters=cfg.dac_iters, jor_iters=cfg.jor_iters,
+                dale_iters=cfg.dale_iters, pm_iters=cfg.pm_iters,
+                eta_nn=cfg.eta_nn, npae_jitter=cfg.npae_jitter,
+                fitted_aug=self.fitted_aug, fitted_comm=self.fitted_comm,
+                stream_mean=cfg.stream_mean, device=self.device)
         return self._engine
 
-    def fit(self, Xp, yp, *, log_theta0=None, thetas=None, grad_fn=None,
-            train: bool = True, trace=None) -> "GPFleet":
+    def _needs_comm_data(self, train: bool) -> bool:
+        """The communication/augmented datasets are built only when
+        consumed: by an augmented-data trainer that will actually run, or
+        by a grbcm-family serving method."""
+        return ((train and get_trainer(self.config.trainer)
+                 .needs_augmented_data)
+                or get_method(self.config.method).needs_augmented_data)
+
+    def fit(self, Xp, yp, *, generator=None, comm_data=None,
+            log_theta0=None, thetas=None, grad_fn=None, train: bool = True,
+            trace=None) -> "GPFleet":
         """Train the hyperparameters (trainer registry) and cache the
         serving factors. Returns self.
 
@@ -122,6 +143,11 @@ class GPFleet:
         elsewhere (the reference's `log_theta` and per-agent `thetas`, as
         numpy arrays; `thetas` is read only here). `trace` (the
         reference's TraceRecorder hook) is not yet ported.
+
+        When the trainer or method needs the grBCM communication dataset,
+        it is drawn from `generator` (a torch.Generator; None takes torch's
+        default one), or taken as given from `comm_data` = (Xc, yc), e.g.
+        the reference's draw as numpy arrays.
         """
         if trace is not None:
             raise NotImplementedError(
@@ -143,10 +169,20 @@ class GPFleet:
         else:
             lt0 = pack(list(cfg.theta0[:-2]), cfg.theta0[-2],
                        cfg.theta0[-1], dtype=Xp.dtype, device=self.device)
+        self._comm_data = None
+        if self._needs_comm_data(train):
+            if comm_data is not None:
+                Xc, yc = (_tensor(a, Xp.dtype, self.device)
+                          for a in comm_data)
+            else:
+                Xc, yc = communication_dataset(generator, Xp, yp)
+            self._comm_data = (Xc, yc, *augment(Xp, yp, Xc, yc))
         if train:
             spec = get_trainer(cfg.trainer)
+            Xt, yt = (self._comm_data[2:] if spec.needs_augmented_data
+                      else (Xp, yp))
             self.log_theta, self.thetas, self.train_info = spec.run(
-                cfg, lt0, Xp, yp, self.A, grad_fn=grad_fn)
+                cfg, lt0, Xt, yt, self.A, grad_fn=grad_fn)
         else:
             self.log_theta = lt0
             self.thetas = (lt0.expand(cfg.num_agents, lt0.shape[0])
@@ -165,7 +201,20 @@ class GPFleet:
                                            self.train_info.get("Z"))
         else:
             self.fitted = fit_experts(self.log_theta, Xp, yp,
-                                      jitter=cfg.jitter)
+                                      jitter=cfg.jitter,
+                                      cache_cross=cfg.cache_cross)
+        self.fitted_aug = self.fitted_comm = None
+        if get_method(cfg.method).needs_augmented_data:
+            Xc, yc, Xa, ya = self._comm_data
+            if cfg.sparse_m is not None:
+                self.fitted_aug = self._fit_sparse(self.log_theta, Xa, ya)
+                self.fitted_comm = self._fit_sparse(self.log_theta,
+                                                    Xc[None], yc[None])
+            else:
+                self.fitted_aug = fit_experts(self.log_theta, Xa, ya,
+                                              jitter=cfg.jitter)
+                self.fitted_comm = fit_experts(self.log_theta, Xc[None],
+                                               yc[None], jitter=cfg.jitter)
         self._engine = None
         return self
 
@@ -180,9 +229,20 @@ class GPFleet:
 
         `method` overrides config.method for this call; `cen_*`
         centralized references pass through to the engine."""
+        cfg = self.config
         method = (method if method is not None
-                  else self.config.method).replace("-", "_")
-        get_method(method[4:] if method.startswith("cen_") else method)
+                  else cfg.method).replace("-", "_")
+        spec = get_method(method[4:] if method.startswith("cen_")
+                          else method)
+        if not method.startswith("cen_") and (
+                (cfg.sparse_m is not None and not spec.sparse)
+                or (spec.family == "sparse" and cfg.sparse_m is None)):
+            validate_config(cfg.replace(method=method))   # a clear error
+        if spec.needs_augmented_data and self.fitted_aug is None:
+            raise ValueError(
+                f"method {method!r} needs the grBCM augmented/"
+                f"communication experts; fit with a grbcm method "
+                f"configured (FleetConfig(method=...)) so they are built")
         return self.engine.predict(method, Xs)
 
     # -- streaming / membership ----------------------------------------------
@@ -233,6 +293,11 @@ class GPFleet:
                 f"(min count is {n}) — stream more data with observe() "
                 f"first")
         spec = get_trainer(self.config.trainer)
+        if spec.needs_augmented_data:
+            raise ValueError(
+                f"trainer {self.config.trainer!r} needs augmented/"
+                f"communication datasets, which sliding windows do not "
+                f"carry — streaming fleets drift with a plain-data trainer")
         cfg = self.config if iters is None \
             else self.config.replace(admm_iters=int(iters))
         self.log_theta, self.thetas, info = spec.run(

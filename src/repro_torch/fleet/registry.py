@@ -11,7 +11,15 @@ names its ROADMAP item (`get_trainer`, `get_method`, `validate_config`).
       -> (log_theta (K,), thetas (M, K), info)`
   that forwards the FleetConfig's ADMM parameters to the loop unchanged,
   as the reference's adapters do (their `diag` comes with the training
-  trace, ROADMAP queue A item 4).
+  trace, ROADMAP queue A item 4). `needs_augmented_data` trainers (gapx,
+  dec-gapx) expect (Xp, yp) to already be the augmented datasets D_{+i}.
+
+  METHODS — the 13 decentralized prediction methods of §5 and the low-rank
+  `npae_sparse`, with the reference's capability flags: `online_safe`
+  (the grbcm variants need augmented/communication experts the streaming
+  path does not maintain), `needs_augmented_data` (the grBCM
+  communication dataset, paper eq. 16-17) and `sparse` (servable from
+  sparse pseudo-representation experts; the dense NPAE trio is not).
 """
 from __future__ import annotations
 
@@ -20,7 +28,8 @@ from typing import Callable, NamedTuple
 from ..core.sparse import (make_sparse_grad, select_inducing,
                            train_fact_sparse)
 from ..core.training import (train_apx_gp, train_c_gp, train_dec_apx_gp,
-                             train_dec_c_gp, train_fact_gp)
+                             train_dec_c_gp, train_dec_gapx_gp,
+                             train_fact_gp, train_gapx_gp)
 
 
 class TrainerSpec(NamedTuple):
@@ -28,6 +37,7 @@ class TrainerSpec(NamedTuple):
     name: str
     run: Callable
     paper: str
+    needs_augmented_data: bool = False
 
 
 def _run_fact(cfg, lt0, Xp, yp, A, grad_fn=None):
@@ -47,6 +57,11 @@ def _run_apx(cfg, lt0, Xp, yp, A, grad_fn=None):
                         iters=cfg.admm_iters, grad_fn=grad_fn)
 
 
+def _run_gapx(cfg, lt0, Xp, yp, A, grad_fn=None):
+    return train_gapx_gp(lt0, Xp, yp, rho=cfg.rho, L=cfg.lipschitz,
+                         iters=cfg.admm_iters, grad_fn=grad_fn)
+
+
 def _run_dec_c(cfg, lt0, Xp, yp, A, grad_fn=None):
     thetas, info = train_dec_c_gp(lt0, Xp, yp, A, rho=cfg.rho,
                                   iters=cfg.admm_iters,
@@ -59,6 +74,13 @@ def _run_dec_apx(cfg, lt0, Xp, yp, A, grad_fn=None):
     thetas, info = train_dec_apx_gp(lt0, Xp, yp, A, rho=cfg.rho,
                                     kappa=cfg.kappa, iters=cfg.admm_iters,
                                     grad_fn=grad_fn)
+    return thetas.mean(0), thetas, info
+
+
+def _run_dec_gapx(cfg, lt0, Xp, yp, A, grad_fn=None):
+    thetas, info = train_dec_gapx_gp(lt0, Xp, yp, A, rho=cfg.rho,
+                                     kappa=cfg.kappa, iters=cfg.admm_iters,
+                                     grad_fn=grad_fn)
     return thetas.mean(0), thetas, info
 
 
@@ -84,8 +106,11 @@ TRAINERS: dict[str, TrainerSpec] = {s.name: s for s in (
     TrainerSpec("fact", _run_fact, "§2.3.1 (FACT-GP baseline)"),
     TrainerSpec("c", _run_c, "eq. 24"),
     TrainerSpec("apx", _run_apx, "eq. 26"),
+    TrainerSpec("gapx", _run_gapx, "Alg. 1", needs_augmented_data=True),
     TrainerSpec("dec-c", _run_dec_c, "eq. 30"),
     TrainerSpec("dec-apx", _run_dec_apx, "eq. 34 (Thm. 1)"),
+    TrainerSpec("dec-gapx", _run_dec_gapx, "Alg. 4",
+                needs_augmented_data=True),
     TrainerSpec("fact-sparse", _run_fact_sparse,
                 "§2.3.1 x Titsias 2009 (collapsed ELBO, joint theta + Z)"),
     TrainerSpec("dec-apx-sparse", _run_dec_apx_sparse,
@@ -97,8 +122,6 @@ SPARSE_TRAINERS = ("fact-sparse", "dec-apx-sparse")
 # trainers the reference registers, with the ROADMAP queue A item that
 # ports them
 _LATER_TRAINERS = {
-    "gapx": "ROADMAP queue A item 3 (the grBCM communication dataset)",
-    "dec-gapx": "ROADMAP queue A item 3 (the grBCM communication dataset)",
     "dec-apx-sharded": "ROADMAP queue A item 7 (multi-GPU)",
 }
 
@@ -122,13 +145,15 @@ def get_trainer(name: str) -> TrainerSpec:
 
 
 class MethodSpec(NamedTuple):
-    """One registered prediction method. `family` is "dac" or "sparse"
-    (served from sparse pseudo-representation experts only). Every method
-    registered here can serve a sparse_m fleet; the reference's dense-only
-    ones are listed in _DENSE_ONLY."""
+    """One registered prediction method (flags: see the module
+    docstring). `family` is "dac", "npae" or "sparse" (served from sparse
+    pseudo-representation experts only)."""
     name: str
     paper: str
     family: str = "dac"
+    online_safe: bool = True
+    needs_augmented_data: bool = False
+    sparse: bool = True
 
 
 METHODS: dict[str, MethodSpec] = {s.name: s for s in (
@@ -136,25 +161,30 @@ METHODS: dict[str, MethodSpec] = {s.name: s for s in (
     MethodSpec("gpoe", "Alg. 6, eq. 12-13"),
     MethodSpec("bcm", "Alg. 7, eq. 14-15"),
     MethodSpec("rbcm", "Alg. 8, eq. 14-15"),
+    MethodSpec("grbcm", "Alg. 9, eq. 16-17", online_safe=False,
+               needs_augmented_data=True),
+    MethodSpec("npae", "Alg. 10, eq. 18-21", "npae", sparse=False),
+    MethodSpec("npae_star", "Alg. 11-12 (PM omega*)", "npae",
+               sparse=False),
+    MethodSpec("nn_poe", "Alg. 13, eq. 39"),
+    MethodSpec("nn_gpoe", "Alg. 14, eq. 39"),
+    MethodSpec("nn_bcm", "Alg. 15, eq. 39"),
+    MethodSpec("nn_rbcm", "Alg. 16, eq. 39"),
+    MethodSpec("nn_grbcm", "Alg. 17, eq. 39", online_safe=False,
+               needs_augmented_data=True),
+    MethodSpec("nn_npae", "Alg. 18, eq. 39", "npae", sparse=False),
     MethodSpec("npae_sparse", "Alg. 10 from Titsias low-rank factors "
-               "(core.sparse.lowrank)", family="sparse"),
+               "(core.sparse.lowrank)", "sparse", online_safe=False),
 )}
 
-# methods the reference registers, with the ROADMAP queue A item that
-# ports them
-_LATER_METHODS = {name: "ROADMAP queue A item 3 (CBNN, grBCM, NPAE)"
-                  for name in ("grbcm", "npae", "npae_star", "nn_poe",
-                               "nn_gpoe", "nn_bcm", "nn_rbcm", "nn_grbcm",
-                               "nn_npae")}
 # the reference's sparse=False methods: the dense NPAE family needs the
 # cross-Gram blocks of raw training points
-_DENSE_ONLY = ("npae", "npae_star", "nn_npae")
+_DENSE_ONLY = tuple(n for n, s in METHODS.items() if not s.sparse)
 
 # FleetConfig switches whose subsystems are not ported, by ROADMAP item
 _LATER_SWITCHES = (
     ("sharded", "ROADMAP queue A item 7 (multi-GPU)"),
     ("routed", "ROADMAP queue A item 7 (multi-GPU)"),
-    ("cache_cross", "ROADMAP queue A item 3 (CBNN, grBCM, NPAE)"),
 )
 
 
@@ -163,43 +193,37 @@ def method_names() -> tuple[str, ...]:
 
 
 def get_method(name: str) -> MethodSpec:
-    """The ported method `name` (hyphens accepted); a method the reference
-    has but the port does not yet raises ValueError, an unknown one
-    KeyError."""
-    name = name.replace("-", "_")
-    spec = METHODS.get(name)
+    """The registered method `name` (hyphens accepted); an unknown one
+    raises KeyError."""
+    spec = METHODS.get(name.replace("-", "_"))
     if spec is not None:
         return spec
-    if name in _LATER_METHODS:
-        raise ValueError(f"method {name!r} is not yet ported to repro_torch "
-                         f"({_LATER_METHODS[name]}); ported methods: "
-                         f"{sorted(METHODS)}")
     raise KeyError(f"unknown prediction method {name!r}; registered "
                    f"methods: {sorted(METHODS)}")
 
 
 def validate_config(cfg) -> None:
     """Reject a FleetConfig that names an unknown trainer or method, asks
-    for a method or switch that is not yet ported, or breaks one of the
-    reference's sparse rules: the sparse trainers and npae_sparse need
-    sparse_m, a sparse_m fleet serves no dense-only method, and sparse_m
-    and online exclude each other. A trainer the reference has but the
-    port does not yet is rejected when a fit trains (`get_trainer`), so
-    such a config still serves known hyperparameters."""
+    for a switch that is not yet ported, or breaks one of the reference's
+    rules: a method that is not online-safe on a streaming fleet; the
+    sparse trainers and npae_sparse need sparse_m; a sparse_m fleet serves
+    no dense-only method, streams no windows and caches no cross-Gram. A
+    trainer the reference has but the port does not yet is rejected when
+    a fit trains (`get_trainer`), so such a config still serves known
+    hyperparameters."""
     if cfg.trainer not in TRAINERS and cfg.trainer not in _LATER_TRAINERS:
         raise KeyError(f"unknown trainer {cfg.trainer!r}; registered "
                        f"trainers: {sorted(TRAINERS)}")
-    if cfg.sparse_m is not None and cfg.method in _DENSE_ONLY:
-        raise ValueError(
-            f"method {cfg.method!r} needs the dense O(Ni) per-agent "
-            f"factors and cannot serve from sparse pseudo-representation "
-            f"experts (sparse_m={cfg.sparse_m}); sparse-capable methods: "
-            f"{sorted(METHODS)}")
     spec = get_method(cfg.method)
     for field, item in _LATER_SWITCHES:
         if getattr(cfg, field) not in (False, None):
             raise ValueError(f"FleetConfig({field}={getattr(cfg, field)!r}) "
                              f"is not yet ported to repro_torch ({item})")
+    if cfg.online and not spec.online_safe:
+        raise ValueError(
+            f"method {cfg.method!r} is not online-safe: the streaming path "
+            f"maintains base experts only, and grbcm variants need "
+            f"separately refit augmented/communication experts")
     if cfg.trainer in SPARSE_TRAINERS and cfg.sparse_m is None:
         raise ValueError(
             f"trainer {cfg.trainer!r} fits sparse pseudo-representation "
@@ -209,8 +233,21 @@ def validate_config(cfg) -> None:
         raise ValueError(
             f"method {cfg.method!r} serves from sparse pseudo-"
             f"representation experts; set FleetConfig(sparse_m=...)")
-    if cfg.sparse_m is not None and cfg.online:
-        raise ValueError(
-            "sparse_m and online are mutually exclusive: the sliding-"
-            "window path maintains dense rank-1 Cholesky updates, not "
-            "inducing-point statistics")
+    if cfg.sparse_m is not None:
+        if not spec.sparse:
+            ok = sorted(n for n, s in METHODS.items() if s.sparse)
+            raise ValueError(
+                f"method {cfg.method!r} needs the dense O(Ni) per-agent "
+                f"factors and cannot serve from sparse pseudo-"
+                f"representation experts (sparse_m={cfg.sparse_m}); "
+                f"sparse-capable methods: {ok}")
+        if cfg.online:
+            raise ValueError(
+                "sparse_m and online are mutually exclusive: the sliding-"
+                "window path maintains dense rank-1 Cholesky updates, not "
+                "inducing-point statistics")
+        if cfg.cache_cross:
+            raise ValueError(
+                "cache_cross caches the dense NPAE cross-Gram; sparse "
+                "fleets never need it — npae_sparse assembles the cross-"
+                "covariance from low-rank factors (docs/sparse_experts.md)")

@@ -16,6 +16,16 @@ coalesce ragged requests into fixed-size micro-batches, serve them through
       --online --observe-every 4 --agents 4 --per-agent 64
   PYTHONPATH=src python -m repro_torch.launch.serve_gp --device cpu \
       --sparse-m 32 --method npae-sparse --agents 4 --per-agent 256
+  PYTHONPATH=src python -m repro_torch.launch.serve_gp --device cpu \
+      --method nn-npae --agents 4 --per-agent 64 --eta-nn 0.5
+  PYTHONPATH=src python -m repro_torch.launch.serve_gp --device cpu \
+      --method grbcm --trainer dec-gapx --train-iters 5 --agents 4 \
+      --per-agent 64
+
+Every method of the fleet registry serves under `--method` (hyphens or
+underscores), and every centralized reference as `cen_<method>`; the
+grbcm methods and the gapx/dec-gapx trainers draw the grBCM communication
+dataset from the launcher's generator.
 
 `--online` is the streaming front door (the reference's serve_online):
 the fleet keeps one sliding window per agent (FleetConfig(online=True)),
@@ -176,6 +186,8 @@ def main(argv=None):
     ap.add_argument("--observe-every", type=int, default=4,
                     help="fleet-wide observations ingested between "
                          "prediction micro-batches (online mode)")
+    ap.add_argument("--eta-nn", type=float, default=0.1,
+                    help="CBNN participation threshold (paper eq. 39)")
     ap.add_argument("--sparse-m", type=int, default=None, metavar="M",
                     help="per-agent inducing count: fit/serve sparse "
                          "pseudo-representation experts (core.sparse) "
@@ -203,7 +215,7 @@ def main(argv=None):
                  "engine only")
     base = args.method[4:] if args.method.startswith("cen_") else args.method
     cfg = FleetConfig(num_agents=args.agents, method=base, chunk=args.chunk,
-                      dac_iters=args.dac_iters,
+                      dac_iters=args.dac_iters, eta_nn=args.eta_nn,
                       stream_mean=not args.no_stream, trainer=args.trainer,
                       admm_iters=args.train_iters or FleetConfig.admm_iters,
                       fact_steps=args.train_iters or FleetConfig.fact_steps,
@@ -218,7 +230,7 @@ def main(argv=None):
     # the synthetic-fleet launcher always starts from the TRUE theta:
     # --train-iters 0 serves it directly, N runs the trainer from there
     fleet = GPFleet(cfg, device=device).fit(
-        Xp, yp, log_theta0=pack(*_TRUE_THETA, dtype=dtype),
+        Xp, yp, generator=gen, log_theta0=pack(*_TRUE_THETA, dtype=dtype),
         train=bool(args.train_iters))
     _sync(device)
     trained = (f"trained ({args.trainer}, {args.train_iters} rounds) and "

@@ -93,17 +93,21 @@ def test_fleet_float32_follows_the_inputs(data):
 
 def test_fit_with_training_is_not_ported(data):
     """Training is ported (tests/test_torch_training.py, the sparse
-    trainers in tests/test_torch_sparse.py); what is not yet is the
-    trainers that need the grBCM communication dataset, the sharded loop
-    and the training trace. The sparse trainers need sparse_m, as the
-    reference's rule says, and train with it."""
+    trainers in tests/test_torch_sparse.py, gapx and dec-gapx in
+    tests/test_torch_fleet_methods.py); what is not yet is the sharded
+    loop and the training trace. The sparse trainers need sparse_m, as the
+    reference's rule says, and train with it; the gapx trainers train on
+    the augmented data."""
     Xp, yp, _ = data
-    for trainer, item in (("gapx", "item 3"), ("dec-gapx", "item 3"),
-                          ("dec-apx-sharded", "item 7")):
-        fleet = GPFleet(FleetConfig(trainer=trainer), device="cpu")
-        with pytest.raises(ValueError, match=f"not yet ported.*{item}"):
-            fleet.fit(Xp, yp)
-        fleet.fit(Xp, yp, train=False)            # serving known theta works
+    fleet = GPFleet(FleetConfig(trainer="dec-apx-sharded"), device="cpu")
+    with pytest.raises(ValueError, match="not yet ported.*item 7"):
+        fleet.fit(Xp, yp)
+    fleet.fit(Xp, yp, train=False)                # serving known theta works
+    for trainer in ("gapx", "dec-gapx"):
+        fleet = GPFleet(FleetConfig(trainer=trainer, admm_iters=2),
+                        device="cpu").fit(Xp, yp, log_theta0=LOG_THETA)
+        assert fleet.thetas.shape == (4, 4)
+        assert bool(torch.isfinite(fleet.predict(data[2])[0]).all())
     for trainer in ("fact-sparse", "dec-apx-sparse"):
         with pytest.raises(ValueError, match="needs the per-agent inducing"):
             GPFleet(FleetConfig(trainer=trainer), device="cpu")
@@ -126,18 +130,19 @@ def test_fleet_shape_errors(data):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(method="npae"), ValueError, "not yet ported"),
-    (dict(method="nn_rbcm"), ValueError, "item 3"),
+    (dict(routed=True), ValueError, "not yet ported"),
+    (dict(method="nn_grbcm", online=True), ValueError, "online-safe"),
     (dict(method="npae-sparse"), ValueError, "sparse_m"),
     (dict(method="nope"), KeyError, "unknown prediction method"),
     (dict(trainer="nope"), KeyError, "unknown trainer"),
     (dict(sharded=True), ValueError, "item 7"),
     (dict(sparse_m=8, online=True), ValueError, "mutually exclusive"),
-    (dict(cache_cross=True), ValueError, "not yet ported"),
+    (dict(cache_cross=True, sparse_m=8), ValueError, "cache_cross"),
 ])
 def test_validate_config_rejects_what_is_not_ported(kw, err, match):
-    """What is not yet ported, what is unknown, and the reference's sparse
-    rules (npae_sparse without sparse_m; sparse_m with online)."""
+    """What is not yet ported, what is unknown, and the reference's rules
+    (grbcm methods are not online-safe; npae_sparse without sparse_m;
+    sparse_m with online or with the cross-Gram cache)."""
     with pytest.raises(err, match=match):
         validate_config(FleetConfig(**kw))
     with pytest.raises(err, match=match):
@@ -211,10 +216,14 @@ def test_online_fleet_observe_drift_join_leave_matches_reference(data,
 
 
 def test_registry_serves_the_dac_family():
-    """The DAC family, and npae_sparse for sparse fleets."""
-    assert sorted(METHODS) == ["bcm", "gpoe", "npae_sparse", "poe", "rbcm"]
+    """The paper's 13 methods, and npae_sparse for sparse fleets."""
+    assert sorted(METHODS) == sorted(
+        ["poe", "gpoe", "bcm", "rbcm", "grbcm", "npae", "npae_star",
+         "nn_poe", "nn_gpoe", "nn_bcm", "nn_rbcm", "nn_grbcm", "nn_npae",
+         "npae_sparse"])
     assert get_method("rbcm").paper == "Alg. 8, eq. 14-15"
     assert get_method("npae-sparse").family == "sparse"
+    assert get_method("nn-npae").family == "npae"
 
 
 def test_serve_gp_runs_on_the_cpu(capsys):
@@ -231,9 +240,9 @@ def test_serve_gp_rejects_training(capsys):
     with pytest.raises(SystemExit):
         serve_gp.main(["--device", "cpu", "--train-iters", "-1"])
     with pytest.raises(SystemExit):
-        serve_gp.main(["--device", "cpu", "--trainer", "gapx",
+        serve_gp.main(["--device", "cpu", "--trainer", "dec-apx-sharded",
                        "--train-iters", "5"])
-    assert "invalid choice: 'gapx'" in capsys.readouterr().err
+    assert "invalid choice: 'dec-apx-sharded'" in capsys.readouterr().err
 
 
 def test_serve_gp_trains_on_the_cpu(capsys):

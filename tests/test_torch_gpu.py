@@ -41,7 +41,9 @@ def cuda():
 
 RBF_MATVEC_GPU_SHAPES = [(256, 4, 8100, 2), (131, 4, 8099, 2),
                          (256, 4, 512, 2), (97, 3, 777, 3), (256, 2, 555, 8),
-                         (64, 2, 300, 11), (256, 40, 810, 2), (1, 1, 1, 1)]
+                         (64, 2, 300, 11), (256, 40, 810, 2), (1, 1, 1, 1),
+                         (256, 1, 8100, 2), (256, 4, 16200, 2),
+                         (200, 1, 8099, 2)]
 
 
 def _rbf_matvec_inputs(dev, Nt, M, Ni, D):
@@ -74,10 +76,14 @@ def test_kernel_is_bitwise_repeatable(cuda, Nt, M, Ni, D):
     assert all(torch.equal(K.rbf_matvec(*args), first) for _ in range(20))
 
 
-@pytest.mark.parametrize("Nt,M,Ni,D", [(256, 4, 8100, 2), (256, 4, 512, 2)])
+@pytest.mark.parametrize("Nt,M,Ni,D", [(256, 4, 8100, 2), (256, 4, 512, 2),
+                                       (256, 1, 8100, 2),
+                                       (256, 4, 16200, 2)])
 def test_kernel_is_one_device_launch_per_call(cuda, Nt, M, Ni, D):
     """One wrapper call is one kernel on the device and nothing else (no
-    scratch fill, no second pass), at the serve and sparse tiles."""
+    scratch fill, no second pass), at the serve and sparse tiles and at
+    the grBCM tiles (the communication expert, M = 1, and the augmented
+    experts, Ni = 16,200)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     args = _rbf_matvec_inputs(cuda, Nt, M, Ni, D)
@@ -168,6 +174,23 @@ def test_nll_grad_kernel_matches_plain(cuda, M, N, D):
     assert bool(((got.double() - want).abs() <= REL_TOL * scale).all())
 
 
+def test_nll_grad_kernel_matches_plain_near_the_augmented_shape(cuda):
+    """gapx / dec-gapx run the kernel at N = 16,200 (d2u 2.1e9 elements,
+    just under 2^31): N = 16,199 (not a multiple of 4, the scalar path)
+    held per agent to the float64 plain version, each component within
+    1e-5 of its sum of absolute terms."""
+    M, N, D = 4, 16_199, 2
+    d2u, inner, params = _nll_grad_inputs(cuda, M, N, D, 7)
+    got = G.nll_grad(d2u, inner, params)
+    for m in range(M):
+        args = (d2u[m:m + 1].double(), inner[m:m + 1].double(),
+                params[m:m + 1].double())
+        want = G.nll_grad_plain(*args)[0]
+        scale = G.nll_grad_plain(args[0], args[1].abs(), args[2])[0]
+        assert bool(((got[m].double() - want).abs() <= REL_TOL * scale)
+                    .all()), m
+
+
 def test_nll_grad_kernel_raises_on_cuda_float64(cuda):
     d2u, inner, params = (t.double() for t in
                           _nll_grad_inputs(cuda, 2, 16, 2, 0))
@@ -205,6 +228,80 @@ def test_training_launches_nll_grad_once_per_iteration(cuda):
     assert float((th - th_plain).abs().max()) <= 1e-4
 
 
+def _grbcm_data(dev, M=4, Ni=500, seed=5):
+    g = torch.Generator(dev).manual_seed(seed)
+    X = 2 * torch.rand(M * Ni, 2, generator=g, device=dev)
+    X = X[torch.argsort(X[:, 0])]
+    y = torch.sin(2 * X[:, 0]) * torch.cos(3 * X[:, 1])
+    return X.reshape(M, Ni, 2), y.reshape(M, Ni), \
+        2 * torch.rand(300, 2, generator=g, device=dev), g
+
+
+@pytest.mark.parametrize("method", ["grbcm", "nn_grbcm", "cen_grbcm"])
+def test_grbcm_fleet_streams_both_expert_sets_through_the_kernel(cuda,
+                                                                 method):
+    """A grbcm fleet on the card: per query tile one rbf_matvec launch for
+    the augmented experts and one for the communication expert (M = 1),
+    and the means of the same fleet served without the kernel."""
+    Xp, yp, Xs, g = _grbcm_data(cuda)
+    lt = pack([1.2, 0.3], 1.3, 0.1, dtype=torch.float32, device=cuda)
+    fleet = GPFleet(FleetConfig(method="grbcm", stream_mean=True)).fit(
+        Xp, yp, generator=g, log_theta0=lt, train=False)
+    assert fleet.fitted_aug.Xp.shape == (4, 1000, 2)
+    assert fleet.fitted_comm.Xp.shape == (1, 500, 2)
+    before = K.launches
+    mean, var, _ = fleet.predict(Xs, method=method)
+    assert K.launches == before + 2 * 2              # 2 tiles x 2 sets
+    dense = PredictionEngine(fleet.fitted, fleet.A, stream_mean=False,
+                             fitted_aug=fleet.fitted_aug,
+                             fitted_comm=fleet.fitted_comm)
+    dmean, dvar, _ = dense.predict(method, Xs)
+    assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())
+    assert float((mean - dmean).abs().max()) <= 1e-4 * float(
+        dmean.abs().max())
+    assert torch.equal(var, dvar)
+
+
+def test_float64_factors_and_npae_on_the_card(cuda):
+    """The C5 repair: a float64 batch of four factors solves on the card
+    (two triangular solves, not torch.cholesky_solve), and every dense
+    method serves float64 there as on the CPU."""
+    Xp, yp, Xs, g = _grbcm_data(cuda, Ni=700)
+    Xp, yp, Xs = Xp.double(), yp.double(), Xs.double()
+    lt = pack([1.2, 0.3], 1.3, 0.1, dtype=torch.float64, device=cuda)
+    kw = dict(method="grbcm", dac_iters=100, jor_iters=100, dale_iters=300,
+              pm_iters=30)
+    fleet = GPFleet(FleetConfig(**kw)).fit(Xp, yp, generator=g,
+                                           log_theta0=lt, train=False)
+    Xc, yc = fleet._comm_data[:2]
+    cpu = GPFleet(FleetConfig(**kw), device="cpu").fit(
+        Xp.cpu(), yp.cpu(), comm_data=(Xc.cpu(), yc.cpu()),
+        log_theta0=lt.cpu(), train=False)
+    assert float((fleet.fitted_aug.alpha.cpu() - cpu.fitted_aug.alpha)
+                 .abs().max()) <= 1e-8 * float(cpu.fitted_aug.alpha.abs()
+                                               .max())
+    for method in ("grbcm", "npae", "npae_star", "nn_npae", "nn_rbcm",
+                   "cen_npae"):
+        mean, var, _ = fleet.predict(Xs, method=method)
+        cmean, cvar, _ = cpu.predict(Xs.cpu(), method=method)
+        assert mean.dtype == torch.float64
+        assert float((mean.cpu() - cmean).abs().max()) <= 1e-7 * float(
+            cmean.abs().max()), method
+        assert float((var.cpu() - cvar).abs().max()) <= 1e-7 * float(
+            cvar.abs().max()), method
+
+
+@pytest.mark.parametrize("trainer", ["gapx", "dec-gapx"])
+def test_gapx_trainers_launch_nll_grad_once_per_iteration(cuda, trainer):
+    Xp, yp, _, g = _grbcm_data(cuda, Ni=300)
+    before = G.launches
+    fleet = GPFleet(FleetConfig(trainer=trainer, admm_iters=5,
+                                kappa=10_000.0, lipschitz=10_000.0)).fit(
+        Xp, yp, generator=g)
+    assert G.launches == before + 5
+    assert bool(torch.isfinite(fleet.log_theta).all())
+
+
 def test_fleet_trains_on_the_card(cuda):
     g = torch.Generator(cuda).manual_seed(2)
     X = 2 * torch.rand(4 * 400, 2, generator=g, device=cuda)
@@ -216,6 +313,17 @@ def test_fleet_trains_on_the_card(cuda):
     assert fleet.thetas.shape == (4, 4)
     mean, var, _ = fleet.predict(X[:300])
     assert bool(torch.isfinite(mean).all()) and bool((var > 0).all())
+
+
+def test_serve_gp_new_methods_on_the_card(cuda, capsys):
+    serve_gp.main(["--agents", "4", "--per-agent", "256", "--requests", "4",
+                   "--batch", "128", "--method", "nn-npae"])
+    serve_gp.main(["--agents", "4", "--per-agent", "256", "--requests", "4",
+                   "--batch", "128", "--method", "grbcm", "--trainer",
+                   "dec-gapx", "--train-iters", "3"])
+    out = capsys.readouterr().out
+    assert "nn_npae: served" in out and "grbcm: served" in out
+    assert "trained (dec-gapx, 3 rounds)" in out
 
 
 def test_serve_gp_trains_on_the_card(cuda, capsys):

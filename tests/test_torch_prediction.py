@@ -199,6 +199,8 @@ def test_engine_rejects_unknown_method_and_mismatched_graph(fits):
     _, tf = fits
     eng = PredictionEngine(tf, path_graph(M), device="cpu")
     with pytest.raises(ValueError, match="unknown prediction method"):
-        eng.predict("npae", np.zeros((3, 2)))
+        eng.predict("nope", np.zeros((3, 2)))
+    with pytest.raises(ValueError, match="fitted_aug and fitted_comm"):
+        eng.predict("grbcm", np.zeros((3, 2)))
     with pytest.raises(ValueError, match="adjacency"):
         PredictionEngine(tf, path_graph(M + 1), device="cpu")

@@ -421,8 +421,8 @@ def test_engine_sparse_rejections_and_streamed_means(data):
     fp, _ = _fits(data, 8)
     Xp, yp, Xs = (_t(a) for a in data)
     eng = PredictionEngine(fp, path_graph(M), chunk=8, device="cpu")
-    for method in registry._DENSE_ONLY:
-        with pytest.raises(ValueError, match="unknown prediction method"):
+    for method in registry._DENSE_ONLY + ("cen_npae",):
+        with pytest.raises(ValueError, match="dense O.M.2 Ni.2. cross-Gram"):
             eng.predict(method, Xs)
     dense = PredictionEngine(fit_experts(_t(LOG_THETA), Xp, yp),
                              path_graph(M), chunk=8, device="cpu")
@@ -441,8 +441,9 @@ def test_engine_sparse_rejections_and_streamed_means(data):
 # ------------------------------------------------------------- registry
 
 def test_registry_sparse_flags_match_reference():
+    assert set(METHODS) == set(J_METHODS)
     for name, spec in METHODS.items():
-        assert J_METHODS[name].sparse, name
+        assert spec.sparse == J_METHODS[name].sparse, name
         assert spec.family == J_METHODS[name].family, name
     assert set(registry._DENSE_ONLY) == {
         n for n, s in J_METHODS.items() if not s.sparse}

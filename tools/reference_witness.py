@@ -1,0 +1,167 @@
+#!/usr/bin/env python3
+"""The reference (src/repro, JAX) beside the port (src/repro_torch) on the
+CPU, in float64, on the same data, at per-agent sizes below the paper
+fleet's 8,100: two findings of chip_smoke.py's methods phase, each held
+against the reference where it can run.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python3 tools/reference_witness.py \\
+        [--per-agent 500,1000,2000] [--seed 0] [--parts c8,gapx]
+
+  c8    DEC-NPAE* (npae_star) on a 4-agent path fleet of one draw of the
+        paper's field (true theta, 256 held-out queries): RMSE against
+        the noise-free field and the final JOR residual at FleetConfig's
+        500 JOR iterations and at chip_smoke.py's NPAE_STAR_JOR_ITERS,
+        with npae (500) and cen_npae beside, from both packages.
+  gapx  gapx and dec-gapx, 3 iterations from FleetConfig's theta0 on the
+        augmented data D_{+i} (2 N_i points per agent, the communication
+        set drawn by the port and fed to both), with kappa = L scaled from
+        chip_smoke.py's GAPX_KAPPA at 16,200 points by 2 N_i / 16,200, and
+        rho both at FleetConfig's 500 and scaled the same way (with rho,
+        kappa and the NLL's gradient all in proportion to N, the ADMM
+        step is the same at every N): sigma_eps per agent and the
+        residuals from both packages.
+
+Each (part, size) prints one JSON line. The paper fleet itself is not run
+here: the reference's NPAE terms hold 16 Gram blocks of 8,100^2 points at
+once (8.4 GB in float64) beside the factors, and its gapx 4 kernel
+matrices of 16,200^2 with their autodiff transients; the card's machine
+has no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+TRUE_THETA = ([1.2, 0.3], 1.3, 0.1)
+N_QUERIES = 256
+JOR_COUNTS = (500, 50_000)          # FleetConfig's, NPAE_STAR_JOR_ITERS
+GAPX_KAPPA, GAPX_POINTS, GAPX_ITERS = 20_000.0, 16_200, 3
+
+
+def paper_field(per_agent: int, seed: int):
+    """Stripes of one draw of the paper's field (as chip_smoke.py's
+    paper_data, on the CPU in float64) and noise-free held-out queries:
+    numpy (Xp (4, Ni, 2), yp (4, Ni), Xq (256, 2), fq (256,))."""
+    import torch
+    from repro_torch.core.gp import pack, stripe_partition
+    from repro_torch.data import random_inputs, rff_field
+    gen = torch.Generator().manual_seed(seed)
+    lt = pack(*TRUE_THETA)
+    n = 4 * per_agent
+    X = random_inputs(gen, n + N_QUERIES)
+    f = rff_field(gen, lt, 2)(X)
+    y = f + math.exp(float(lt[-1])) * torch.randn(n + N_QUERIES,
+                                                  generator=gen,
+                                                  dtype=torch.float64)
+    Xp, yp = stripe_partition(X[:n], y[:n], 4)
+    return Xp.numpy(), yp.numpy(), X[n:].numpy(), f[n:].numpy()
+
+
+def c8(per_agent: int, seed: int) -> dict:
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    from repro.core.consensus import path_graph as jpath_graph
+    from repro.core.prediction import PredictionEngine as JEngine
+    from repro.core.prediction import fit_experts as jfit_experts
+    from repro_torch.core.consensus import path_graph
+    from repro_torch.core.gp import pack
+    from repro_torch.core.prediction import PredictionEngine, fit_experts
+    Xp, yp, Xq, fq = paper_field(per_agent, seed)
+    lt = pack(*TRUE_THETA)
+    jfit = jfit_experts(jnp.asarray(lt.numpy()), jnp.asarray(Xp),
+                        jnp.asarray(yp))
+    tfit = fit_experts(lt, torch.from_numpy(Xp), torch.from_numpy(yp))
+    out = {"part": "c8", "per_agent": per_agent, "seed": seed}
+    for pkg in ("reference", "port"):
+        res = {}
+        for method, iters in (("npae", 500), ("cen_npae", 500),
+                              *(("npae_star", it) for it in JOR_COUNTS)):
+            if pkg == "reference":
+                e = JEngine(jfit, jpath_graph(4), jor_iters=iters)
+                m, _, info = e.predict(method, jnp.asarray(Xq))
+            else:
+                e = PredictionEngine(tfit, path_graph(4), jor_iters=iters,
+                                     device="cpu")
+                m, _, info = e.predict(method, torch.from_numpy(Xq))
+            r = {"rmse": float(np.sqrt(np.mean((np.asarray(m) - fq) ** 2)))}
+            if "jor_residual" in info:
+                r["jor_residual"] = float(info["jor_residual"])
+            res[f"{method}@{iters}" if method == "npae_star" else method] = r
+        out[pkg] = res
+    return out
+
+
+def gapx(per_agent: int, seed: int) -> dict:
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    from repro.core.consensus import path_graph as jpath_graph
+    from repro.core.training import train_dec_gapx_gp as j_dec_gapx
+    from repro.core.training import train_gapx_gp as j_gapx
+    from repro_torch.core.consensus import path_graph
+    from repro_torch.core.gp import augment, communication_dataset
+    from repro_torch.core.training import train_dec_gapx_gp, train_gapx_gp
+    from repro_torch.fleet import FleetConfig
+    Xp, yp, _, _ = paper_field(per_agent, seed)
+    gen = torch.Generator().manual_seed(seed + 7)
+    Xc, yc = communication_dataset(gen, torch.from_numpy(Xp),
+                                   torch.from_numpy(yp))
+    Xa, ya = (a.contiguous() for a in augment(torch.from_numpy(Xp),
+                                              torch.from_numpy(yp), Xc, yc))
+    n_aug = Xa.shape[1]
+    scale = n_aug / GAPX_POINTS
+    kappa = GAPX_KAPPA * scale
+    th0 = FleetConfig().theta0
+    lt0 = np.log(np.asarray(th0, dtype=np.float64))
+    out = {"part": "gapx", "per_agent": per_agent, "augmented": n_aug,
+           "seed": seed, "kappa": kappa, "iters": GAPX_ITERS}
+    for rho_name, rho in (("rho_500", 500.0), ("rho_scaled", 500.0 * scale)):
+        runs = {}
+        for trainer in ("gapx", "dec-gapx"):
+            if trainer == "gapx":
+                _, tt, ti = train_gapx_gp(torch.from_numpy(lt0), Xa, ya,
+                                          rho=rho, L=kappa, iters=GAPX_ITERS)
+                _, jt, ji = j_gapx(jnp.asarray(lt0), jnp.asarray(Xa.numpy()),
+                                   jnp.asarray(ya.numpy()), rho=rho, L=kappa,
+                                   iters=GAPX_ITERS)
+            else:
+                tt, ti = train_dec_gapx_gp(torch.from_numpy(lt0), Xa, ya,
+                                           path_graph(4), rho=rho,
+                                           kappa=kappa, iters=GAPX_ITERS)
+                jt, ji = j_dec_gapx(jnp.asarray(lt0), jnp.asarray(Xa.numpy()),
+                                    jnp.asarray(ya.numpy()), jpath_graph(4),
+                                    rho=rho, kappa=kappa, iters=GAPX_ITERS)
+            runs[trainer] = {
+                pkg: {"sigma_eps_per_agent": np.exp(np.asarray(t)[:, -1])
+                      .tolist(),
+                      "residuals": np.asarray(i["residuals"]).tolist()}
+                for pkg, t, i in (("reference", jt, ji), ("port", tt, ti))}
+        out[rho_name] = {"rho": rho, **runs}
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--per-agent", default="500,1000,2000")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parts", default="c8,gapx")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT / "src"))
+    import jax
+    import torch
+    jax.config.update("jax_enable_x64", True)
+    torch.set_num_threads(4)
+    parts = {"c8": c8, "gapx": gapx}
+    for part in args.parts.split(","):
+        for n in (int(v) for v in args.per_agent.split(",")):
+            print(json.dumps(parts[part](n, args.seed)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
