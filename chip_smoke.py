@@ -34,6 +34,33 @@ Phases, one JSON line each:
            once per query tile, that the means agree with the same experts
            served without the kernel, and the RMSE against the noise-free
            field.
+  fullgp   the FULL-GP yardstick: predict_full (paper eq. 5-6) at the true
+           hyperparameters over all 32,400 points for the serve phase's
+           6,144 queries, in float32 and, when the float32 Cholesky fails
+           (NaN), in float64, with the failure reported; then
+           train_full_gp (multi-start Adam on log theta) on the
+           GPExperimentConfig.n_train = 8,100 points spread over the
+           square, float64, from theta0: FULLGP_STARTS starts of
+           FULLGP_STEPS steps, one start when a probe says they would
+           take longer than FULLGP_BUDGET_S. It checks the RMSE, that
+           the NLL fell and theta is finite, and reports ms, peak memory,
+           ms per step and the recovered theta.
+  fleets   the paper's other fleets, M = 10, 20, 40 over the same 32,400
+           points (stripe_partition, path graph, true hyperparameters,
+           float32, streamed means): rbcm, nn_rbcm, npae and npae_star at
+           FleetConfig's iteration counts on four 256-query tiles each.
+           It reports batch ms, q/s, RMSE over the FULL-GP's, CBNN agents
+           per query, the final DAC / JOR residuals, rbcm's DAC
+           trajectory from the engine's diagnostics mode and the sweeps
+           dac_until needs to reach 1e-9 on a tile's payloads (float64).
+           It checks the RMSE of rbcm, nn_rbcm and cen_npae, rbf_matvec
+           launched once per tile and held to its plain version on the
+           fleet's own inputs, each DAC method against its centralized
+           form within the rounding bound (DAC_ROUND at M), every agent's
+           own DAC estimate within M times its query's final spread (the
+           reported residual recomputed), npae and npae_star within their
+           residual bounds of cen_npae, and that diagnostics change no
+           prediction.
   methods  CBNN, grBCM and dense NPAE (the paper's Alg. 9-18): the same
            paper fleet at the true hyperparameters, float32, streamed
            means, with the grBCM communication dataset (8,100 points drawn
@@ -62,10 +89,15 @@ Phases, one JSON line each:
            and serves grbcm and nn_rbcm.
   train    the training path: the same fleet trained from the paper's
            theta0 with DEC-apx-GP (rho 500, kappa 10,000, 100 iterations,
-           float32) by GPFleet.fit(train=True), then serving 4,096
-           queries. It checks nll_grad launched once per iteration for the
-           whole fleet, that the summed NLL fell, the RMSE against the
-           field, and that 10 float64 iterations with the kernel agree
+           float32) by GPFleet.fit(train=True, trace=TraceRecorder()),
+           then serving 4,096 queries. It checks nll_grad launched once
+           per iteration for the whole fleet, the trace's 100 iterations
+           (its summary reported), that GPFleet.metrics() and the
+           Prometheus text parse back to the same counters, that the
+           summed NLL fell, the RMSE against the field, that 10 iterations
+           with the trace's diagnostics give the same theta as without
+           (ms per iteration of both reported), that 10 float64
+           iterations with the kernel agree
            with 10 iterations with its plain version swapped in through
            the grad_fn hook, and in float32 within float32's own distance
            from float64; it reports the distance from the true theta and
@@ -105,6 +137,15 @@ Phases, one JSON line each:
            streamed means of the served queries against the float64 plain
            path, the RMSE against the field, and reports the factors'
            bytes against the dense factors'.
+  persist  GPFleet.save then GPFleet.load in the same process, one kind at
+           a time into a directory of the checkout deleted before the
+           next: the serve phase's dense fleet, the online phase's windows
+           (with count and jitter), the 4 x 100,000 sparse fleet and the
+           methods phase's grBCM fleet. It checks that the loaded fleet's
+           predictions (rbf_matvec launched once per tile) are bitwise the
+           saved fleet's, and for the online fleet that one observe round
+           (one cholupdate launch) leaves both states bitwise equal; it
+           reports save ms, load ms and bytes on disk.
   lm       LM serving: internlm2-1.8b at its published widths and depth
            (24 layers, d 2,048, 16 query / 8 KV heads, vocab 92,544,
            1.89 B float32 parameters drawn from the seed) through the
@@ -146,14 +187,17 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 DEVICE = "cuda"                 # every phase runs on the card
+ROOT = Path(__file__).resolve().parent
 
 # H100 SXM figures for the lower bounds (bound_ms):
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA data sheet
@@ -174,10 +218,14 @@ RMSE_LIMIT = 0.2                      # twice sigma_eps
 # shapes
 RBF_MATVEC_SHAPES = [(256, 4, 8100, 2), (200, 4, 8100, 2), (131, 4, 8099, 2),
                      (256, 4, 1013, 1), (97, 3, 777, 3), (256, 2, 555, 8),
-                     (256, 40, 810, 2), (256, 1, 8100, 2), (256, 4, 16200, 2)]
-# the grBCM tiles of the methods phase, timed and traced like the serve
-# tile: the communication expert (M = 1) and the augmented experts
+                     (256, 40, 810, 2), (256, 1, 8100, 2), (256, 4, 16200, 2),
+                     (256, 10, 3240, 2), (256, 20, 1620, 2)]
+# the grBCM tiles of the methods phase and the tiles of the fleets phase
+# (the paper's M = 10, 20, 40 over the same 32,400 points), timed and
+# traced like the serve tile: the communication expert (M = 1), the
+# augmented experts, and the three larger fleets
 GRBCM_TILES = ((256, 1, 8100, 2), (256, 4, 16200, 2))
+FLEET_TILES = ((256, 10, 3240, 2), (256, 20, 1620, 2), (256, 40, 810, 2))
 RBF_MATVEC_REPEATS = 20               # calls held bitwise to the first
 RBF_MATVEC_TRACED = 50                # back-to-back calls in one trace
 # nll_grad (M, N, D) after the training shape: ragged N, other D, and the
@@ -313,7 +361,8 @@ METHOD_TILES = 4
 # whose moments a method takes (the grbcm methods: the augmented experts
 # and the communication expert); the NPAE terms take k^T alpha densely, as
 # the reference's npae_terms_cached does
-MATVEC_PER_TILE = {"grbcm": 2, "nn_grbcm": 2, "cen_grbcm": 2, "nn_poe": 1,
+MATVEC_PER_TILE = {"grbcm": 2, "nn_grbcm": 2, "cen_grbcm": 2, "rbcm": 1,
+                   "nn_poe": 1,
                    "nn_gpoe": 1, "nn_bcm": 1, "nn_rbcm": 1, "npae": 0,
                    "npae_star": 0, "nn_npae": 0, "cen_npae": 0}
 UNIT = 2.0 ** -24                     # float32 unit roundoff
@@ -373,6 +422,28 @@ GAPX_ITERS = 3                        # gapx / dec-gapx iterations at 16,200
 # rule, C4). gapx's agents diverge at this kappa; the reference does the
 # same at a reduced Ni with the same kappa / Ni (tools/gapx_kappa.py).
 GAPX_KAPPA = 2 * TRAIN_KAPPA
+# fullgp phase: the FULL-GP yardstick (paper eq. 5-6) over all 32,400
+# points, then exact training (P1, multi-start Adam on log theta) on
+# GPExperimentConfig.n_train points in float64: FULLGP_STARTS starts of
+# FULLGP_STEPS steps, cut to one start when a probe of FULLGP_PROBE_STEPS
+# steps says the three would take longer than FULLGP_BUDGET_S
+FULLGP_STARTS, FULLGP_STEPS, FULLGP_PROBE_STEPS = 3, 200, 5
+FULLGP_BUDGET_S = 60.0
+# fleets phase: the paper's other fleets (GPExperimentConfig.fleets) over
+# the same 32,400 points, stripe-partitioned on a path graph, each method
+# at FleetConfig's iteration counts on METHOD_TILES tiles of BATCH queries.
+# DAC on an M-agent path keeps 1 - eps 2 (1 - cos(pi / M)) of its slowest
+# mode a sweep (eps = 1/3): 0.9674, 0.9918, 0.9979 at M = 10, 20, 40, so
+# 200 sweeps leave 1.3e-3, 0.19 and 0.66 of it. The engine reads the sums
+# as M times the agents' mean, which the doubly stochastic sweeps keep
+# whatever the residual, so the served posterior is held to its
+# centralized form within the rounding bound at every M (DAC_ROUND with
+# M); what the residual bounds is any one agent's own estimate, which is
+# held per query within M times that query's own final spread.
+FLEET_SIZES = (10, 20, 40)
+FLEET_METHODS = ("rbcm", "nn_rbcm", "npae", "npae_star")
+DAC_UNTIL_TOL = 1e-9                  # dac_until's default tolerance
+DIAG_SWEEPS = (1, 10, 50, 100, 200)   # trajectory points reported
 
 
 def card_line() -> str:
@@ -745,7 +816,7 @@ def phase_kernels(ctx):
                 lambda: K.rbf_matvec_plain(a, b, v, ls, sf2), 20)
             case["composed_library_ms"] = cuda_ms(composed, 20)
             ctx["rbf_matvec"] = case
-        elif (Nt, M, Ni, D) in GRBCM_TILES:
+        elif (Nt, M, Ni, D) in GRBCM_TILES + FLEET_TILES:
             rbf_matvec_timing(case, a, b, v, ls, sf2, sms)
             case["plain_ms"] = cuda_ms(
                 lambda: K.rbf_matvec_plain(a, b, v, ls, sf2), 5)
@@ -1364,6 +1435,265 @@ def _iterative_npae_bound(method, cfg, A, terms, info, unit):
     return _npae_bound(H, kA, b, r, unit=unit, **kw)
 
 
+def phase_fullgp(ctx):
+    """The FULL-GP yardstick and exact training (see the module
+    docstring)."""
+    import torch
+    from repro_torch.configs.paper_gp import CONFIG
+    from repro_torch.core.gp import pack, predict_full, train_full_gp
+    from repro_torch.core.gp.exact import _fit_one
+    dev = torch.device(DEVICE)
+    Xp, yp, Xq, fq = paper_data(ctx)
+    n_query = N_BATCHES * BATCH + BIG
+    X, y, Xq, fq = Xp.reshape(-1, 2), yp.reshape(-1), Xq[:n_query], \
+        fq[:n_query]
+    out = {"n_train": int(X.shape[0]), "queries": n_query, "predict": {}}
+    rmse = None
+    # float32 first; float64 only when the float32 Cholesky fails (C6)
+    for dtype in (torch.float32, torch.float64):
+        lt = pack(*TRUE_THETA, dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        mean, var = predict_full(lt, X.to(dtype), y.to(dtype), Xq.to(dtype))
+        torch.cuda.synchronize()
+        rec = {"ms": 1e3 * (time.perf_counter() - t0),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+               "factor_bytes": X.shape[0] ** 2 * lt.element_size(),
+               "finite": bool(torch.isfinite(mean).all()
+                              and torch.isfinite(var).all())}
+        out["predict"][str(dtype).removeprefix("torch.")] = rec
+        if rec["finite"]:
+            if mean.shape != (n_query,) or not bool((var > 0).all()):
+                raise AssertionError("FULL-GP moments are not positive of "
+                                     "the expected shape")
+            rmse = rec["rmse_vs_field"] = _rmse(mean, fq)
+            break
+        del mean, var
+        torch.cuda.empty_cache()
+    if rmse is None:
+        raise AssertionError("predict_full failed in float32 and float64")
+    _check_rmse("FULL-GP", rmse)
+    ctx["fullgp_rmse"] = rmse
+    del mean, var
+    torch.cuda.empty_cache()
+
+    # exact training on n_train points spread over the whole square (every
+    # fourth point of the stripes), float64, from the paper's theta0
+    step = max(1, X.shape[0] // CONFIG.n_train)
+    Xt, yt = X[::step][:CONFIG.n_train].double(), \
+        y[::step][:CONFIG.n_train].double()
+    n = int(Xt.shape[0])
+    th0 = CONFIG.theta0
+    lt0 = pack(list(th0[:-2]), th0[-2], th0[-1], dtype=torch.float64,
+               device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _fit_one(lt0, Xt, yt, steps=FULLGP_PROBE_STEPS)
+    torch.cuda.synchronize()
+    probe_ms = 1e3 * (time.perf_counter() - t0) / FULLGP_PROBE_STEPS
+    starts = FULLGP_STARTS if (FULLGP_STARTS * FULLGP_STEPS * probe_ms
+                               <= 1e3 * FULLGP_BUDGET_S) else 1
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    lt, info = train_full_gp(Xt, yt,
+                             torch.Generator(dev).manual_seed(ctx["seed"]),
+                             num_starts=starts, steps=FULLGP_STEPS,
+                             log_theta0=lt0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    hist = info["history"]
+    if not (bool(torch.isfinite(lt).all()) and float(hist[-1])
+            < float(hist[0])):
+        raise AssertionError(f"train_full_gp: theta {lt.tolist()}, NLL "
+                             f"{float(hist[0])} -> {float(hist[-1])}")
+    true_lt = pack(*TRUE_THETA, dtype=torch.float64, device=dev)
+    out["train"] = {
+        "n_train": n, "dtype": "float64", "starts": starts,
+        "starts_asked": FULLGP_STARTS, "steps": FULLGP_STEPS,
+        "probe_ms_per_step": probe_ms, "budget_s": FULLGP_BUDGET_S,
+        "train_s": train_s,
+        "ms_per_step": 1e3 * train_s / (starts * FULLGP_STEPS),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+        "theta0": list(th0), "theta": torch.exp(lt).tolist(),
+        "true_theta": list(TRUE_THETA[0]) + list(TRUE_THETA[1:]),
+        "max_abs_log_theta_from_true": float((lt - true_lt).abs().max()),
+        "nll_first_last": [float(hist[0]), float(info["nll"])]}
+    return out
+
+
+def _dac_payloads(mu, var, pv, mask):
+    """rBCM's per-agent DAC payloads [beta mu / var, beta / var, beta]
+    (M, Nt, 3), as decentralized._poe_family_from_moments builds them."""
+    import torch
+    m = torch.ones_like(mu) if mask is None else mask.to(mu.dtype)
+    beta = 0.5 * (torch.log(pv) - torch.log(var)) * m
+    return torch.stack([beta * mu / var, beta / var, beta], dim=-1)
+
+
+def _agent_readout_gate(method, w0, A, iters, reported):
+    """Rerun the engine's DAC on a tile's payloads w0 (M, Nt, 3): the
+    largest final spread must be the reported residual, and every agent's
+    own estimate of the network sums, M w_i, must lie within M times its
+    query's final spread (plus the rounding bound of DAC_ROUND) of the
+    exact sums. Returns the largest share of the bound and the spreads."""
+    import torch
+    from repro_torch.core.consensus import dac
+    M = w0.shape[0]
+    w, res = dac(w0.reshape(M, -1), A, iters)
+    if float(res[-1]) != float(reported):
+        raise AssertionError(f"{method}: recomputed DAC residual "
+                             f"{float(res[-1])} is not the reported "
+                             f"{float(reported)}")
+    w = w.reshape(w0.shape).double()
+    spread = w.amax(0) - w.amin(0)                        # (Nt, 3)
+    exact = w0.double().sum(0)
+    rounding = 2 * iters * M * UNIT * w0.double().abs().sum(0)
+    bound = M * spread + rounding
+    share = float(((M * w - exact).abs() / bound).max())
+    if not share <= 1.0:
+        raise AssertionError(f"{method}: an agent's own DAC estimate is "
+                             f"{share} x its residual bound from the sums")
+    return share, spread.amax(-1)
+
+
+def phase_fleets(ctx):
+    """The paper's M = 10, 20, 40 fleets (see the module docstring)."""
+    import torch
+    from repro_torch.core.consensus import dac_until
+    from repro_torch.core.gp import pack, stripe_partition
+    from repro_torch.core.prediction import aggregation as agg
+    from repro_torch.fleet import FleetConfig, GPFleet
+    from repro_torch.kernels import rbf_matvec as K
+    dev = torch.device(DEVICE)
+    Xp4, yp4, Xq, fq = paper_data(ctx)
+    X, y = Xp4.reshape(-1, 2), yp4.reshape(-1)
+    n_q = METHOD_TILES * BATCH
+    Xq, fq = Xq[:n_q], fq[:n_q]
+    Xt = Xq[:BATCH]
+    lt = pack(*TRUE_THETA, dtype=torch.float32, device=dev)
+    yard = ctx.get("fullgp_rmse")
+    out = {"fullgp_rmse": yard, "dtype": "float32",
+           "queries_per_method": n_q, "fleets": {}}
+    failures = []
+    matvec_total = 0
+
+    def gate(fn, *args):
+        try:
+            return fn(*args)
+        except AssertionError as e:
+            failures.append(str(e))
+
+    for M in FLEET_SIZES:
+        Xp, yp = stripe_partition(X, y, M)
+        cfg = FleetConfig(num_agents=M, stream_mean=True)
+        assert (cfg.graph, cfg.dac_iters, cfg.jor_iters, cfg.pm_iters,
+                cfg.eta_nn, cfg.chunk) == ("path", 200, 500, 100, 0.1,
+                                           BATCH), cfg
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fleet = GPFleet(cfg, device=DEVICE).fit(Xp, yp, log_theta0=lt,
+                                                train=False)
+        torch.cuda.synchronize()
+        rep = {"agents": M, "per_agent": int(Xp.shape[1]),
+               "fit_ms": 1e3 * (time.perf_counter() - t0), "methods": {}}
+        first = {}
+        for method in FLEET_METHODS:
+            # the DAC family is exact up to rounding at any M: its RMSE is
+            # gated; npae / npae_star stop where JOR does (C8), held by
+            # their residual bound below, their RMSE reported
+            dac_family = method in ("rbcm", "nn_rbcm")
+            r, first[method] = _serve_method(
+                fleet.predict, method, Xq, fq, cfg.chunk,
+                failures if dac_family else [])
+            matvec_total += r["rbf_matvec_launches_per_batch"] \
+                * METHOD_TILES
+            if yard is not None:
+                r["rmse_over_fullgp"] = r["rmse_vs_field"] / yard
+            rep["methods"][method] = r
+        eng, pv = fleet.engine, fleet.fitted.prior_var
+        mu, var = eng._moments(fleet.fitted, Xt)
+
+        # the served posterior against its centralized form (rounding)
+        shares = {}
+        for method in ("rbcm", "nn_rbcm"):
+            mask = first[method][2].get("mask")
+            shares[method] = gate(
+                _check_dac_vs_cen, method, first[method][:2],
+                agg.rbcm(mu, var, pv, mask=mask),
+                _dac_scales(method, mu, var, pv, mask), cfg.dac_iters, M)
+        # any one agent's own estimate, from each query's own residual
+        readout = gate(_agent_readout_gate, "rbcm",
+                       _dac_payloads(mu, var, pv, None), fleet.A,
+                       cfg.dac_iters, first["rbcm"][2]["dac_residual"])
+        if readout is not None:
+            sh, spread = readout
+            rep["agent_readout_share_of_residual_bound"] = sh
+            rep["dac_spread_per_query"] = {
+                "min": float(spread.min()), "median": float(spread.median()),
+                "max": float(spread.max())}
+        # npae / npae_star against the centralized NPAE solve
+        terms = eng._terms(fleet.fitted, Xt)
+        cen = agg.npae(*terms, pv)
+        rep["cen_npae_first_tile_rmse"] = _rmse(cen[0], fq[:BATCH])
+        gate(_check_rmse, f"M={M} cen_npae", rep["cen_npae_first_tile_rmse"])
+        for method in ("npae", "npae_star"):
+            bound = _iterative_npae_bound(method, cfg, fleet.A, terms,
+                                          first[method][2], UNIT)
+            shares[method] = gate(_check_npae, method, first[method][:2],
+                                  cen, bound)
+            rep["methods"][method]["bound_min_median"] = [
+                float(bound.min()), float(bound.median())]
+        rep["dec_vs_cen_share_of_bound"] = shares
+        del terms, cen
+
+        # diagnostics mode: rbcm's DAC trajectory, predictions unchanged
+        eng.set_diagnostics(True)
+        m_d, v_d, info_d = fleet.predict(Xt)
+        eng.set_diagnostics(False)
+        if not (torch.equal(m_d, first["rbcm"][0])
+                and torch.equal(v_d, first["rbcm"][1])):
+            failures.append(f"M={M}: diagnostics mode changed rbcm's "
+                            f"prediction")
+        traj = info_d["dac_residuals"]
+        rep["rbcm_dac_residual_at_sweep"] = {
+            str(k): float(traj[k - 1]) for k in DIAG_SWEEPS}
+
+        # sweeps DAC needs to reach dac_until's tolerance on this tile's
+        # payloads (float64: float32's rounding of payloads in the
+        # hundreds stays above 1e-9)
+        w0 = _dac_payloads(mu, var, pv, None).double().reshape(M, -1)
+        t0 = time.perf_counter()
+        _, sweeps = dac_until(w0, fleet.A, tol=DAC_UNTIL_TOL)
+        torch.cuda.synchronize()
+        rep["dac_until"] = {"tol": DAC_UNTIL_TOL, "sweeps": sweeps,
+                            "ms": 1e3 * (time.perf_counter() - t0),
+                            "initial_spread": float(
+                                (w0.amax(0) - w0.amin(0)).max())}
+
+        # rbf_matvec against its plain version on this path's own inputs
+        # (the first tile, the fleet's points and weights): comparison
+        # launches, after the path's counts were read
+        ft = fleet.fitted
+        ls = torch.exp(ft.log_theta[:-2])
+        sf2 = torch.exp(2 * ft.log_theta[-2:-1])
+        got = K.rbf_matvec(Xt, ft.Xp, ft.alpha, ls, sf2)
+        want = K.rbf_matvec_plain(Xt, ft.Xp, ft.alpha, ls, sf2)
+        scale = K.rbf_matvec_plain(Xt, ft.Xp, ft.alpha.abs(), ls, sf2)
+        rep["rbf_matvec_max_rel_err"] = _rel_err(torch, got, want, scale)
+        if not rep["rbf_matvec_max_rel_err"] <= REL_TOL:
+            failures.append(f"M={M}: rbf_matvec disagrees with its plain "
+                            f"version ({rep['rbf_matvec_max_rel_err']})")
+        out["fleets"][str(M)] = rep
+        del fleet, eng, mu, var, first
+        torch.cuda.empty_cache()
+    ctx["launches_by_path"]["rbf_matvec"]["fleets"] = int(matvec_total)
+    if failures:
+        emit({"phase": "fleets", "report_of_a_failed_phase": True, **out})
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def phase_methods(ctx):
     """CBNN, grBCM and dense NPAE on the paper fleet (see the module
     docstring)."""
@@ -1668,6 +1998,8 @@ def phase_train(ctx):
     from repro_torch.fleet import FleetConfig, GPFleet
     from repro_torch.kernels import nll_grad as G
     from repro_torch.kernels import rbf_matvec as K
+    from repro_torch.obs import (TraceRecorder, parse_prometheus_text,
+                                 prometheus_text)
     dev = torch.device(DEVICE)
     Xp, yp, Xq, fq = paper_data(ctx)
     Xq, fq = Xq[:BIG], fq[:BIG]
@@ -1682,11 +2014,12 @@ def phase_train(ctx):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
-    # the training path: counts reset just before, read just after
+    # the training path, traced: counts reset just before, read just after
+    rec = TraceRecorder()
     G.reset_launches()
     K.reset_launches()
     t0 = time.perf_counter()
-    fleet = GPFleet(cfg, device=DEVICE).fit(Xp, yp, train=True)
+    fleet = GPFleet(cfg, device=DEVICE).fit(Xp, yp, train=True, trace=rec)
     torch.cuda.synchronize()
     fit_ms = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
@@ -1721,6 +2054,25 @@ def phase_train(ctx):
                              f"is not below {RMSE_LIMIT}")
     ctx["launches"]["nll_grad"] = launches["nll_grad"]
     ctx["trained_theta"] = lt
+    trace = rec.last()
+    if not (len(rec) == 1 and trace["nll"].shape == (cfg.admm_iters, 4)
+            and trace["primal_residuals"].shape == (cfg.admm_iters,)
+            and trace["theta_trajectory"].shape[0] == cfg.admm_iters):
+        shapes = {k: getattr(v, "shape", v) for k, v in trace.items()}
+        raise AssertionError(f"the fit's trace is not the trainer's "
+                             f"{cfg.admm_iters} iterations: {shapes}")
+    # the metrics the fleet reports parse back from the Prometheus text
+    snap = fleet.metrics()
+    fams = parse_prometheus_text(prometheus_text())
+    for name, m in snap.items():
+        if name == "fleet" or m["kind"] != "counter":
+            continue
+        got = {tuple(sorted(x["labels"].items())): x["value"]
+               for x in m["series"]}
+        back = {tuple(sorted(lb.items())): v for lb, v in fams[name]}
+        if got != back:
+            raise AssertionError(f"{name}: metrics() {got} != Prometheus "
+                                 f"text {back}")
 
     # CHECK_ITERS iterations with the kernel against the same loop with the
     # plain version swapped in through the grad_fn hook: in float64, then in
@@ -1745,6 +2097,16 @@ def phase_train(ctx):
     th_kernel, _ = train_dec_apx_gp(lt0, Xp, yp, A, **kw)
     torch.cuda.synchronize()
     iter_ms = (1e3 * (time.perf_counter() - t0) - cache_ms) / CHECK_ITERS
+    # the same iterations with the trace's diagnostics (diag=True: per-agent
+    # NLL at every iterate) and the recorder's host copy
+    t0 = time.perf_counter()
+    th_diag, info_diag = train_dec_apx_gp(lt0, Xp, yp, A, diag=True, **kw)
+    TraceRecorder().record("dec-apx", info_diag)
+    torch.cuda.synchronize()
+    iter_ms_traced = (1e3 * (time.perf_counter() - t0) - cache_ms) \
+        / CHECK_ITERS
+    if not torch.equal(th_diag, th_kernel):
+        raise AssertionError("the diagnostics changed the trained theta")
     th_plain, _ = train_dec_apx_gp(lt0, Xp, yp, A, grad_fn=plain_local_grad,
                                    **kw)
     kernel_vs_plain32 = float((th_kernel - th_plain).abs().max())
@@ -1791,6 +2153,11 @@ def phase_train(ctx):
             "admm_iters": cfg.admm_iters, "rho": cfg.rho,
             "kappa": cfg.kappa, "dtype": "float32", "queries": BIG,
             "fit_ms": fit_ms, "ms_per_admm_iteration": iter_ms,
+            "ms_per_admm_iteration_traced": iter_ms_traced,
+            "trace_summary": rec.summary(),
+            "metrics_counters": {k: m["series"] for k, m in snap.items()
+                                 if k != "fleet" and m["kind"] == "counter"},
+            "metrics_fleet": snap["fleet"],
             "training_cache_ms": cache_ms,
             "nll_grad_ms_share_of_iteration":
                 ctx["nll_grad"]["ms"] / iter_ms,
@@ -2265,6 +2632,7 @@ def phase_sparse(ctx):
         _check_rmse(f"100k {method}", served[method]["rmse_vs_field"])
     factor_bytes = sum(t.numel() * t.element_size() for t in big.fitted)
     ctx["big_fit"] = (BX, By, lt, cfg)
+    ctx["big_fleet"] = big
     out["scale"] = {
         "agents": 4, "per_agent": BIG_NI, "queries": SCALE_QUERIES,
         "dtype": "float64 data, float32 kernel", "fit_ms": big_fit_ms,
@@ -2273,6 +2641,88 @@ def phase_sparse(ctx):
         "dense_float32_factor_bytes": 4 * 4 * BIG_NI ** 2,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
         "tr_corr": big.fitted.tr_corr.tolist()}
+    return out
+
+
+def _equal_moments(a, b) -> bool:
+    import torch
+    return all(torch.equal(x, y) for (ma, va), (mb, vb) in zip(a, b)
+               for x, y in ((ma, mb), (va, vb)))
+
+
+def phase_persist(ctx):
+    """Save and load the four kinds of fleet (see the module
+    docstring)."""
+    import torch
+    from repro_torch.fleet import GPFleet
+    from repro_torch.kernels import cholupdate as C
+    from repro_torch.kernels import rbf_matvec as K
+    _, _, Xq, _ = paper_data(ctx)
+    tiles = [Xq[i * BATCH:(i + 1) * BATCH] for i in range(METHOD_TILES)]
+    big_q = big_data(ctx)[2].double()
+    kinds = (("dense", ctx["fleet"], "rbcm", tiles),
+             ("online", ctx["online_fleet"], "rbcm", tiles),
+             ("sparse", ctx["big_fleet"], "rbcm", [big_q]),
+             ("grbcm", ctx["methods_fleet"], "grbcm", tiles))
+    out, matvec = {}, 0
+    for kind, fleet, method, queries in kinds:
+        before = [fleet.predict(x, method=method)[:2] for x in queries]
+        # one kind at a time, its directory gone before the next
+        d = tempfile.mkdtemp(prefix=".chip_smoke_persist_", dir=ROOT)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fleet.save(d)
+            save_ms = 1e3 * (time.perf_counter() - t0)
+            on_disk = sum(f.stat().st_size for f in Path(d).iterdir())
+            t0 = time.perf_counter()
+            loaded = GPFleet.load(d, device=DEVICE)
+            torch.cuda.synchronize()
+            load_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(d)
+        # the loaded fleet's serving: counts reset just before, read after
+        K.reset_launches()
+        after = [loaded.predict(x, method=method)[:2] for x in queries]
+        torch.cuda.synchronize()
+        launches = K.launches
+        matvec += launches
+        want = MATVEC_PER_TILE[method] * len(queries)   # one tile a batch
+        rec = {"method": method, "queries": sum(len(x) for x in queries),
+               "save_ms": save_ms, "load_ms": load_ms,
+               "bytes_on_disk": on_disk,
+               "factor_bytes": sum(t.numel() * t.element_size()
+                                   for f in (fleet.fitted, fleet.fitted_aug,
+                                             fleet.fitted_comm)
+                                   if f is not None for t in f
+                                   if t is not None),
+               "rbf_matvec_launches": launches,
+               "predictions_bitwise_equal": _equal_moments(before, after)}
+        if launches != want or not rec["predictions_bitwise_equal"]:
+            raise AssertionError(f"{kind}: after load {rec}, {want} "
+                                 f"rbf_matvec launches expected")
+        if kind == "online":
+            xs, ys = ctx["online_round"]
+            C.reset_launches()
+            loaded.observe(xs, ys)
+            torch.cuda.synchronize()
+            rec["cholupdate_launches"] = C.launches
+            ctx["launches_by_path"]["cholupdate"]["persist"] = C.launches
+            fleet.observe(xs, ys)
+            rec["observe_bitwise_equal"] = all(
+                torch.equal(a, b) for a, b in zip(loaded._online_state,
+                                                  fleet._online_state))
+            rec["predictions_after_observe_bitwise_equal"] = \
+                _equal_moments([fleet.predict(tiles[0])[:2]],
+                               [loaded.predict(tiles[0])[:2]])
+            if not (rec["cholupdate_launches"] == 1
+                    and rec["observe_bitwise_equal"]
+                    and rec["predictions_after_observe_bitwise_equal"]):
+                raise AssertionError(f"online: observe after load {rec}")
+        out[kind] = rec
+        del loaded, before, after
+        torch.cuda.empty_cache()
+    ctx["launches_by_path"]["rbf_matvec"]["persist"] = matvec
     return out
 
 
@@ -2498,7 +2948,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch  # noqa: F401
     except ImportError as e:
@@ -2509,12 +2959,14 @@ def main(argv=None) -> int:
     card = card_line()
     ctx = {"seed": args.seed, "launches": {},
            "launches_by_path": {"rbf_matvec": {}, "nll_grad": {},
-                                "rbf_gram": {}}}
+                                "rbf_gram": {}, "cholupdate": {}}}
     failed = []
     phases = [("build", phase_build), ("kernels", phase_kernels),
-              ("serve", phase_serve), ("methods", phase_methods),
+              ("serve", phase_serve), ("fullgp", phase_fullgp),
+              ("fleets", phase_fleets), ("methods", phase_methods),
               ("train", phase_train), ("online", phase_online),
-              ("sparse", phase_sparse), ("lm", phase_lm)]
+              ("sparse", phase_sparse), ("persist", phase_persist),
+              ("lm", phase_lm)]
     if args.profile:
         phases.append(("profile", phase_profile))
     for name, fn in phases:

@@ -3,7 +3,8 @@ architecture (plus smoke variants via ArchConfig.reduced()).
 
 The configurations are data, copied from the reference's `repro.configs`;
 the port's LM runs the dense ones (models/lm.py says which families wait).
-The paper's GP experiment configuration is not here yet (ROADMAP A12)."""
+The paper's GP experiment configuration is `configs.paper_gp.CONFIG`
+(GPExperimentConfig), a copy of the reference's."""
 from __future__ import annotations
 
 import importlib

@@ -1,4 +1,4 @@
-from .dac import dac, dac_residual, dac_until
+from .dac import dac, dac_residual, dac_time_varying, dac_until
 from .dale import dale
 from .flooding import flood
 from .graph import (attach_agent, complete_graph, connected_components,
@@ -12,6 +12,6 @@ __all__ = ["path_graph", "cycle_graph", "complete_graph",
            "random_connected_graph", "degree_matrix", "laplacian",
            "max_degree", "perron", "diameter", "is_connected",
            "connected_components", "attach_agent", "remove_agent",
-           "dac", "dac_residual", "dac_until",
+           "dac", "dac_residual", "dac_until", "dac_time_varying",
            "jor", "power_method", "extreme_eigs", "optimal_omega",
            "dale", "flood"]

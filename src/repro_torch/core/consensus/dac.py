@@ -6,7 +6,8 @@ Counterpart of the simulated mode of `repro.core.consensus.dac`: one
 matmul with the Perron matrix per sweep. Lemma 1 requires
 eps in (0, 1/Delta). `dac` runs a fixed sweep count and returns the
 per-sweep maximin residuals like the reference's `lax.scan`; `dac_until`
-is the adaptive Python-level wrapper.
+is the adaptive Python-level wrapper; `dac_time_varying` runs one
+adjacency per sweep (paper Assumption 1).
 """
 from __future__ import annotations
 
@@ -59,3 +60,22 @@ def dac_until(w0, A, tol: float = 1e-9, max_iters: int = 100_000,
         if float(res[-1]) < tol:
             break
     return w, iters
+
+
+def dac_time_varying(w0: torch.Tensor, A_seq: torch.Tensor, eps: float):
+    """DAC over a TIME-VARYING graph (paper Assumption 1): A_seq (T, M, M)
+    gives the adjacency at each sweep; convergence requires the union over
+    every gamma-window to be strongly connected.
+
+    Returns (w_final, residual trajectory (T,)). Each sweep's Perron matrix
+    is I - eps * Laplacian(A_t) in w0's dtype, as in the reference."""
+    A_seq = torch.as_tensor(A_seq).to(w0.device)
+    M = A_seq.shape[-1]
+    eye = torch.eye(M, dtype=w0.dtype, device=w0.device)
+    w, res = w0, []
+    for A_t in A_seq:
+        lap = torch.diag(A_t.sum(1)) - A_t
+        w = (eye - eps * lap.to(w0.dtype)) @ w
+        res.append(_maximin_residual(w.reshape(M, -1)))
+    traj = torch.stack(res) if res else w0.new_zeros(0)
+    return w, traj

@@ -110,6 +110,13 @@ def value_and_grad(fn, log_theta: torch.Tensor, *args, **kw):
     return val.detach(), g
 
 
+def nll_value_and_grad(log_theta: torch.Tensor, X: torch.Tensor,
+                       y: torch.Tensor, jitter: float = 1e-8):
+    """(nll, d nll / d log_theta) by autograd: the reference's
+    `jax.value_and_grad(nll)`."""
+    return value_and_grad(nll, log_theta, X, y, jitter=jitter)
+
+
 def nll_grad_analytic(log_theta: torch.Tensor, X: torch.Tensor,
                       y: torch.Tensor, jitter: float = 1e-8) -> torch.Tensor:
     """Gradient via the paper's trace identity (eq. 4), in log-theta coords.

@@ -21,9 +21,13 @@ Counterpart of `repro.core.prediction.engine` (replicated mode):
                      (core.online, dense only) in place; `rewire` applies
                      a membership change (new adjacency, new M).
 
-PyTorch runs eagerly, so the reference's jit cache and trace counters have
-no counterpart here. The degraded-mode fault plans are not ported yet
-(ROADMAP queue A item 8).
+PyTorch runs eagerly, so nothing is compiled per request; the reference's
+trace counter (`gp_jit_traces_total` in the default `obs` registry, and
+`jit_cache_misses`) counts here what the reference's traces count: the
+distinct (method, query geometry) pairs served. `set_diagnostics(True)`
+adds the per-round DAC (and JOR) residual trajectories to `predict`'s
+info without changing a prediction. The degraded-mode fault plans and
+their counters are not ported yet (ROADMAP queue A item 8).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...obs import default_registry
 from ..gp.kernel import unpack
 from . import aggregation as agg
 from .cbnn import _mask_from_scores, cbnn_mask_cached
@@ -196,6 +201,12 @@ class PredictionEngine:
         self.eta_nn = float(eta_nn)
         self.npae_jitter = float(npae_jitter)
         self.stream_mean = bool(stream_mean)
+        self.diagnostics = False
+        self._served: set = set()     # (method, query shape, dtype) pairs
+        self._trace_count = 0
+        self._traces_total = default_registry().counter(
+            "gp_jit_traces_total", "engine traces (compiled programs), by "
+            "engine and method")
 
     def _queries(self, Xs):
         """Queries as a tensor on the engine's device in the experts'
@@ -250,6 +261,10 @@ class PredictionEngine:
             mean, v, info = _DAC_CORES[base](mu, var, pv, A,
                                              iters=self.dac_iters, mask=mask)
             red["dac_residual"] = info["dac_residuals"][-1]
+            if self.diagnostics:
+                # the full per-round trajectory, max-reduced elementwise
+                # over tiles (the worst tile per round): (dac_iters,)
+                red["dac_residuals"] = info["dac_residuals"]
         elif base in ("grbcm", "cen_grbcm"):
             mu_a, var_a = self._moments(fa, Xq)
             mu_c, var_c = self._moments(fc, Xq)
@@ -260,6 +275,8 @@ class PredictionEngine:
                     mu_a, var_a, mu_c[0], var_c[0], A, iters=self.dac_iters,
                     mask=mask)
                 red["dac_residual"] = info["dac_residuals"][-1]
+                if self.diagnostics:
+                    red["dac_residuals"] = info["dac_residuals"]
         elif method in ("npae", "npae_star"):
             mu, kA, CA = self._terms(f, Xq)
             core = (dec_npae_from_terms if method == "npae"
@@ -267,9 +284,13 @@ class PredictionEngine:
                                  pm_iters=self.pm_iters))
             mean, v, info = core(mu, kA, CA, pv, A, jor_iters=self.jor_iters,
                                  dac_iters=self.dac_iters,
-                                 jitter=self.npae_jitter)
+                                 jitter=self.npae_jitter,
+                                 with_residuals=self.diagnostics)
             red["dac_residual"] = info["dac_residuals"][-1]
             red["jor_residual"] = info["jor_residual"]
+            if self.diagnostics:
+                red["dac_residuals"] = info["dac_residuals"]
+                red["jor_residuals"] = info["jor_residuals"]
         elif method == "npae_sparse":
             # low-rank NPAE: the cross-covariance through the pseudo-points,
             # solved by the same aggregation core as the exact family
@@ -314,6 +335,13 @@ class PredictionEngine:
                 "FleetConfig(sparse_m=...) (or fit_sparse_experts) to build "
                 "the pseudo-representation factors")
         Xs = self._queries(Xs)
+        geometry = (method, tuple(Xs.shape), Xs.dtype)
+        if geometry not in self._served:
+            # the reference traces once per new (method, query geometry);
+            # its zero-recompile contract is asserted against this count
+            self._served.add(geometry)
+            self._trace_count += 1
+            self._traces_total.inc(engine="replicated", method=method)
         perq, red = map_query_tiles(lambda Xq: self._tile(method, Xq), Xs,
                                     self.chunk)
         info = dict(red)
@@ -321,6 +349,26 @@ class PredictionEngine:
         if mask_t is not None:
             info["mask"] = mask_t.T
         return perq["mean"], perq["var"], info
+
+    @property
+    def jit_cache_misses(self) -> int:
+        """Distinct (method, query geometry) pairs served so far: what the
+        reference's trace count counts. Flat across requests => every
+        dispatch reused a served geometry."""
+        return self._trace_count
+
+    def set_diagnostics(self, flag: bool):
+        """Toggle consensus-diagnostics capture: when on, `predict`'s info
+        carries the FULL per-round DAC residual trajectory
+        ("dac_residuals", the worst tile per round), and for npae /
+        npae_star the JOR one ("jor_residuals"), beside the final scalars.
+        Predictions are the same either way. As in the reference, where
+        the flag is baked into the compiled programs, a toggle starts the
+        served-geometry count afresh."""
+        flag = bool(flag)
+        if flag != self.diagnostics:
+            self.diagnostics = flag
+            self._served.clear()
 
     def swap_experts(self, fitted: FittedExperts):
         """Hot-swap the served factors (the streaming case:
@@ -358,6 +406,7 @@ class PredictionEngine:
         self.A = A.to(self.device, torch.float64)
         if fitted is not None:
             self.fitted = fitted.to(self.device)
+        self._served.clear()         # the reference drops its programs
 
     def posterior_means_streamed(self, Xs):
         """Per-agent streamed posterior means (M, Nt) via the fused

@@ -1,3 +1,5 @@
-from .synthetic import gp_sample_field, grid_inputs, random_inputs, rff_field
+from .synthetic import (gp_sample_field, grid_inputs, random_inputs,
+                        rff_field, sst_like_field)
 
-__all__ = ["gp_sample_field", "grid_inputs", "random_inputs", "rff_field"]
+__all__ = ["gp_sample_field", "grid_inputs", "random_inputs", "rff_field",
+           "sst_like_field"]

@@ -9,6 +9,10 @@ its distribution, not to the reference's numbers.
 random-Fourier-feature (RFF) approximation above `exact_max_n` (an RFF draw
 with enough features is statistically indistinguishable from an exact draw
 and costs O(N*F) instead of O(N^3)).
+
+`sst_like_field` builds the SST stand-in: a smooth multi-scale 2-D field
+with a meandering front, normalized like the paper's 400x400 km Atlantic
+patch; it is generated, so no dataset is fetched.
 """
 from __future__ import annotations
 
@@ -79,3 +83,24 @@ def rff_field(generator: torch.Generator, log_theta: torch.Tensor, D: int,
         phi = math.sqrt(2.0 / rff_features) * torch.cos(X @ W.T + b)
         return sigma_f * (phi @ w)
     return field
+
+
+def sst_like_field(X: torch.Tensor, noise_std: float = 0.5,
+                   generator: torch.Generator | None = None):
+    """SST stand-in on [0,1]^2: warm-to-cold gradient + meandering front +
+    eddies. Returns (f, y); f is deterministic, y = f + N(0, noise_std^2)
+    iid from `generator` (default: a fresh generator on X's device seeded
+    0, as the reference's default key is PRNGKey(0)). The paper's noise
+    is N(0, 0.25), std 0.5: the same default."""
+    x, z = X[:, 0], X[:, 1]
+    front = (0.45 + 0.08 * torch.sin(4.0 * math.pi * x)
+             + 0.05 * torch.cos(9.0 * x))
+    f = (2.2 * torch.tanh((front - z) * 9.0)             # Gulf-Stream front
+         + 0.8 * torch.sin(3.1 * x) * torch.cos(2.3 * z)  # mesoscale
+         + 0.4 * torch.sin(7.9 * x + 1.3) * torch.sin(6.1 * z + 0.7)
+         + 0.15 * torch.cos(15.0 * x) * torch.cos(13.0 * z))
+    if generator is None:
+        generator = torch.Generator(X.device).manual_seed(0)
+    y = f + noise_std * torch.randn(f.shape, generator=generator,
+                                    dtype=f.dtype, device=f.device)
+    return f, y

@@ -27,13 +27,31 @@ The grBCM communication dataset D_c and the augmented datasets D_{+i}
 serves from augmented experts and a one-agent communication expert (dense
 or sparse, as the fleet is).
 
+Persistence writes the reference's checkpoint format (checkpoint.io:
+the same npz leaf keys, manifest.json and fleet.json), so a fleet saved
+by either package loads into the other and serves equal predictions:
+
+    fleet.save("ckpt/")                     # factors + config + graph
+    fleet = GPFleet.load("ckpt/")           # serve WITHOUT refitting,
+    mean2, var2, _ = fleet.predict(Xs)      # bit for bit the same
+
+`fit(trace=TraceRecorder())` records the trainer's per-iteration
+diagnostics, and `metrics()` is the `obs` default registry's snapshot
+with a block for this fleet.
+
 The fleet runs on `device` (default: cuda; raises when no card is present
-and the caller did not pass device="cpu"). Persistence, training traces
-and the sharded engine are not ported yet (ROADMAP queue A).
+and the caller did not pass device="cpu"). The sharded engine is not
+ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
+import json
+import os
+
 import torch
+
+from ..checkpoint.io import (LeafSpec, leaf_keys, restore, save_checkpoint,
+                             tree_unflatten)
 
 from ..core.consensus import (complete_graph, cycle_graph, path_graph,
                               random_connected_graph)
@@ -43,6 +61,7 @@ from ..core.online import (OnlineExperts, from_batch, join, leave,
 from ..core.prediction import FittedExperts, PredictionEngine, fit_experts
 from ..core.sparse import SparseExperts, fit_sparse_experts, select_inducing
 from ..device import resolve_device
+from ..obs import default_registry
 from .config import FleetConfig
 from .registry import get_method, get_trainer, validate_config
 
@@ -53,6 +72,21 @@ def _tensor(x, dtype, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.tensor(x, dtype=dtype, device=device)
+
+
+_FLEET_MANIFEST = "fleet.json"
+_FORMAT_VERSION = 1
+
+
+def _contiguous(experts):
+    """The experts with every tensor row-major contiguous. A checkpoint
+    stores arrays in C order, so a fleet serves from C-order factors
+    from the start (torch's Cholesky factors are column-major) and gives
+    the same bits after `load` as before `save`."""
+    if experts is None:
+        return None
+    return type(experts)(*(None if t is None else t.contiguous()
+                           for t in experts))
 
 
 def _build_graph(cfg: FleetConfig) -> torch.Tensor:
@@ -92,6 +126,17 @@ class GPFleet:
     @property
     def num_agents(self) -> int:
         return self.config.num_agents
+
+    @property
+    def is_fitted(self) -> bool:
+        return self.fitted is not None
+
+    @property
+    def jit_cache_misses(self) -> int:
+        """The serving engine's count of distinct (method, query geometry)
+        pairs served (the reference's trace count); 0 before the first
+        serve."""
+        return 0 if self._engine is None else self._engine.jit_cache_misses
 
     @property
     def window_counts(self):
@@ -141,18 +186,17 @@ class GPFleet:
         `train=False` serves `log_theta0` as it is: the "true
         hyperparameters known" scenario, or hyperparameters trained
         elsewhere (the reference's `log_theta` and per-agent `thetas`, as
-        numpy arrays; `thetas` is read only here). `trace` (the
-        reference's TraceRecorder hook) is not yet ported.
+        numpy arrays; `thetas` is read only here). `trace` (an
+        `obs.TraceRecorder`) switches the trainer's diagnostics on
+        (`diag=True`: per-iteration NLL, primal/dual residuals, theta
+        trajectory, stacked on the device) and records the info dict on
+        the recorder after the fit; the trained theta is the same.
 
         When the trainer or method needs the grBCM communication dataset,
         it is drawn from `generator` (a torch.Generator; None takes torch's
         default one), or taken as given from `comm_data` = (Xc, yc), e.g.
         the reference's draw as numpy arrays.
         """
-        if trace is not None:
-            raise NotImplementedError(
-                "fit(trace=...) is not yet ported to repro_torch (ROADMAP "
-                "queue A item 4, obs)")
         cfg = self.config
         Xp = torch.as_tensor(Xp, device=self.device)
         yp = torch.as_tensor(yp, device=self.device)
@@ -182,7 +226,11 @@ class GPFleet:
             Xt, yt = (self._comm_data[2:] if spec.needs_augmented_data
                       else (Xp, yp))
             self.log_theta, self.thetas, self.train_info = spec.run(
-                cfg, lt0, Xt, yt, self.A, grad_fn=grad_fn)
+                cfg, lt0, Xt, yt, self.A, grad_fn=grad_fn,
+                diag=trace is not None)
+            if trace is not None:
+                trace.record(cfg.trainer, self.train_info,
+                             num_agents=cfg.num_agents, method=cfg.method)
         else:
             self.log_theta = lt0
             self.thetas = (lt0.expand(cfg.num_agents, lt0.shape[0])
@@ -200,9 +248,9 @@ class GPFleet:
             self.fitted = self._fit_sparse(self.log_theta, Xp, yp,
                                            self.train_info.get("Z"))
         else:
-            self.fitted = fit_experts(self.log_theta, Xp, yp,
-                                      jitter=cfg.jitter,
-                                      cache_cross=cfg.cache_cross)
+            self.fitted = _contiguous(fit_experts(
+                self.log_theta, Xp, yp, jitter=cfg.jitter,
+                cache_cross=cfg.cache_cross))
         self.fitted_aug = self.fitted_comm = None
         if get_method(cfg.method).needs_augmented_data:
             Xc, yc, Xa, ya = self._comm_data
@@ -211,10 +259,10 @@ class GPFleet:
                 self.fitted_comm = self._fit_sparse(self.log_theta,
                                                     Xc[None], yc[None])
             else:
-                self.fitted_aug = fit_experts(self.log_theta, Xa, ya,
-                                              jitter=cfg.jitter)
-                self.fitted_comm = fit_experts(self.log_theta, Xc[None],
-                                               yc[None], jitter=cfg.jitter)
+                self.fitted_aug = _contiguous(fit_experts(
+                    self.log_theta, Xa, ya, jitter=cfg.jitter))
+                self.fitted_comm = _contiguous(fit_experts(
+                    self.log_theta, Xc[None], yc[None], jitter=cfg.jitter))
         self._engine = None
         return self
 
@@ -222,7 +270,8 @@ class GPFleet:
         cfg = self.config
         if Z is None:
             Z = select_inducing(Xp, cfg.sparse_m, cfg.inducing_init)
-        return fit_sparse_experts(lt, Xp, yp, Z, jitter=cfg.jitter)
+        return _contiguous(fit_sparse_experts(lt, Xp, yp, Z,
+                                              jitter=cfg.jitter))
 
     def predict(self, Xs, method: str | None = None):
         """Serve one query batch -> (mean (Nt,), var (Nt,), info).
@@ -244,6 +293,23 @@ class GPFleet:
                 f"communication experts; fit with a grbcm method "
                 f"configured (FleetConfig(method=...)) so they are built")
         return self.engine.predict(method, Xs)
+
+    def metrics(self) -> dict:
+        """Observability snapshot: the process-wide `obs` default registry
+        (counters, gauges, histograms; the engine's trace counter writes
+        there) plus a `fleet` block describing THIS fleet, with the
+        reference's keys. `obs.prometheus_text()` renders the same
+        registry in the Prometheus text format."""
+        snap = default_registry().snapshot()
+        snap["fleet"] = {
+            "num_agents": self.config.num_agents,
+            "trainer": self.config.trainer,
+            "method": self.config.method,
+            "sharded": self.config.sharded,
+            "is_fitted": self.is_fitted,
+            "jit_cache_misses": self.jit_cache_misses,
+        }
+        return snap
 
     # -- streaming / membership ----------------------------------------------
 
@@ -331,3 +397,136 @@ class GPFleet:
             num_agents=self._online_state.num_agents)
         if self._engine is not None:
             self._engine.rewire(self.A, fitted=self.fitted)
+
+    # -- persistence ---------------------------------------------------------
+
+    def _state_tree(self) -> dict:
+        tree = {"A": self.A, "log_theta": self.log_theta,
+                "thetas": self.thetas, "fitted": self.fitted}
+        if self.fitted_aug is not None:
+            tree["fitted_aug"] = self.fitted_aug
+        if self.fitted_comm is not None:
+            tree["fitted_comm"] = self.fitted_comm
+        if self._online_state is not None:
+            tree["count"] = self._online_state.count
+            tree["jitter"] = self._online_state.jitter
+        return tree
+
+    def save(self, ckpt_dir: str, step: int = 0) -> str:
+        """Persist the fitted fleet: factors + config + consensus graph (+
+        the online window state) in the reference's format. `load` serves
+        bit-identical predictions from it without refitting."""
+        if self.fitted is None:
+            raise RuntimeError("save needs a fitted fleet — call fit() or "
+                               "load() first")
+        path = save_checkpoint(ckpt_dir, step, self._state_tree())
+        # the leaf shapes and dtypes are in checkpoint.io's manifest.json;
+        # fleet.json adds the config and which optional components exist
+        manifest = {
+            "format": _FORMAT_VERSION,
+            "config": self.config.to_dict(),
+            "step": step,
+            "components": {
+                "fitted_aug": self.fitted_aug is not None,
+                "fitted_comm": self.fitted_comm is not None,
+                "fitted_kcross": self.fitted.Kcross is not None,
+                "aug_kcross": (self.fitted_aug is not None
+                               and self.fitted_aug.Kcross is not None),
+                "online": self._online_state is not None,
+                "sparse": isinstance(self.fitted, SparseExperts),
+                "aug_sparse": isinstance(self.fitted_aug, SparseExperts),
+                "comm_sparse": isinstance(self.fitted_comm, SparseExperts),
+            },
+        }
+        # fleet.json is load()'s entry point: written LAST, by temp file +
+        # rename, so a crash mid-save never leaves it over fresh arrays
+        mpath = os.path.join(ckpt_dir, _FLEET_MANIFEST)
+        tmp = mpath + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(manifest, f, indent=2, sort_keys=True)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, mpath)
+        return path
+
+    @staticmethod
+    def _template(ckpt_dir: str, manifest: dict) -> dict:
+        """LeafSpec tree of the saved state, what `restore` checks the
+        stored leaves against: the structure from fleet.json's
+        components, the shapes and dtypes from manifest.json."""
+        comp = manifest["components"]
+        with open(os.path.join(ckpt_dir, "manifest.json")) as f:
+            io_manifest = json.load(f)
+        if io_manifest.get("step") != manifest["step"]:
+            raise ValueError(
+                f"checkpoint manifests disagree: fleet.json is for step "
+                f"{manifest['step']} but manifest.json describes step "
+                f"{io_manifest.get('step')} (mixed checkpoint directory?)")
+
+        def experts(sparse: bool, kcross: bool):
+            if sparse:
+                return SparseExperts(0, 0, 0, 0, 0, 0)
+            return FittedExperts(0, 0, 0, 0, 0, 0 if kcross else None)
+
+        tree = {"A": 0, "log_theta": 0, "thetas": 0,
+                "fitted": experts(comp.get("sparse", False),
+                                  comp["fitted_kcross"])}
+        if comp["fitted_aug"]:
+            tree["fitted_aug"] = experts(comp.get("aug_sparse", False),
+                                         comp["aug_kcross"])
+        if comp["fitted_comm"]:
+            tree["fitted_comm"] = experts(comp.get("comm_sparse", False),
+                                          False)
+        if comp["online"]:
+            tree["count"] = tree["jitter"] = 0
+        specs = io_manifest["leaves"]
+        leaves = []
+        for key in leaf_keys(tree):
+            if key not in specs:
+                raise ValueError(f"checkpoint manifest is missing leaf "
+                                 f"{key!r} (corrupted or truncated "
+                                 f"checkpoint?)")
+            leaves.append(LeafSpec(specs[key]["shape"],
+                                   specs[key]["dtype"]))
+        return tree_unflatten(tree, leaves)
+
+    @classmethod
+    def load(cls, ckpt_dir: str, *, config: FleetConfig | None = None,
+             device=None) -> "GPFleet":
+        """Reconstruct a fitted fleet from a `save()` of either package
+        onto `device` (default: cuda): no refitting, the served
+        predictions are the saving fleet's. `config` overrides the saved
+        config and is validated like any other."""
+        mpath = os.path.join(ckpt_dir, _FLEET_MANIFEST)
+        if not os.path.exists(mpath):
+            raise FileNotFoundError(
+                f"{mpath!r} not found — not a GPFleet.save() checkpoint")
+        with open(mpath) as f:
+            manifest = json.load(f)
+        if manifest.get("format", 0) > _FORMAT_VERSION:
+            raise ValueError(
+                f"fleet checkpoint format {manifest['format']} is newer "
+                f"than this code ({_FORMAT_VERSION})")
+        saved_cfg = FleetConfig.from_dict(manifest["config"])
+        cfg = config if config is not None else saved_cfg
+        dev = resolve_device(device)
+        tree = restore(ckpt_dir, cls._template(ckpt_dir, manifest),
+                       step=manifest["step"], device=dev)
+        fleet = cls(cfg, A=tree["A"].cpu(), device=dev)
+        fleet.log_theta = tree["log_theta"]
+        fleet.thetas = tree["thetas"]
+        fleet.fitted = tree["fitted"]
+        fleet.fitted_aug = tree.get("fitted_aug")
+        fleet.fitted_comm = tree.get("fitted_comm")
+        if manifest["components"]["online"]:
+            f = fleet.fitted
+            fleet._online_state = OnlineExperts(
+                f.log_theta, f.Xp, f.yp, f.L, f.alpha, tree["count"],
+                tree["jitter"])
+        if (get_method(cfg.method).needs_augmented_data
+                and fleet.fitted_aug is None):
+            raise ValueError(
+                f"checkpoint has no augmented/communication experts but "
+                f"method {cfg.method!r} needs them; refit with the grbcm "
+                f"method configured")
+        return fleet

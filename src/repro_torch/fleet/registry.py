@@ -7,11 +7,13 @@ names its ROADMAP item (`get_trainer`, `get_method`, `validate_config`).
 
   TRAINERS — the ported training loops (SPARSE_TRAINERS among them fit
   sparse pseudo-representation experts), each behind a uniform adapter
-  `spec.run(cfg, log_theta0, Xp, yp, A, grad_fn=None)
+  `spec.run(cfg, log_theta0, Xp, yp, A, grad_fn=None, diag=False)
       -> (log_theta (K,), thetas (M, K), info)`
   that forwards the FleetConfig's ADMM parameters to the loop unchanged,
-  as the reference's adapters do (their `diag` comes with the training
-  trace, ROADMAP queue A item 4). `needs_augmented_data` trainers (gapx,
+  as the reference's adapters do. `diag=True` threads the loops'
+  per-iteration diagnostics (primal/dual residuals, per-agent NLL, theta
+  trajectories) into info["diagnostics"]; FACT's NLL history is already
+  its diagnostic. `needs_augmented_data` trainers (gapx,
   dec-gapx) expect (Xp, yp) to already be the augmented datasets D_{+i}.
 
   METHODS — the 13 decentralized prediction methods of §5 and the low-rank
@@ -40,51 +42,52 @@ class TrainerSpec(NamedTuple):
     needs_augmented_data: bool = False
 
 
-def _run_fact(cfg, lt0, Xp, yp, A, grad_fn=None):
+def _run_fact(cfg, lt0, Xp, yp, A, grad_fn=None, diag=False):
     lt, vals = train_fact_gp(lt0, Xp, yp, steps=cfg.fact_steps,
                              lr=cfg.fact_lr)
     return lt, lt.expand(Xp.shape[0], lt.shape[0]), {"nll": vals}
 
 
-def _run_c(cfg, lt0, Xp, yp, A, grad_fn=None):
+def _run_c(cfg, lt0, Xp, yp, A, grad_fn=None, diag=False):
     return train_c_gp(lt0, Xp, yp, rho=cfg.rho, iters=cfg.admm_iters,
                       nested_iters=cfg.nested_iters, nested_lr=cfg.nested_lr,
-                      grad_fn=grad_fn)
+                      grad_fn=grad_fn, diag=diag)
 
 
-def _run_apx(cfg, lt0, Xp, yp, A, grad_fn=None):
+def _run_apx(cfg, lt0, Xp, yp, A, grad_fn=None, diag=False):
     return train_apx_gp(lt0, Xp, yp, rho=cfg.rho, L=cfg.lipschitz,
-                        iters=cfg.admm_iters, grad_fn=grad_fn)
+                        iters=cfg.admm_iters, grad_fn=grad_fn, diag=diag)
 
 
-def _run_gapx(cfg, lt0, Xp, yp, A, grad_fn=None):
+def _run_gapx(cfg, lt0, Xp, yp, A, grad_fn=None, diag=False):
     return train_gapx_gp(lt0, Xp, yp, rho=cfg.rho, L=cfg.lipschitz,
-                         iters=cfg.admm_iters, grad_fn=grad_fn)
+                         iters=cfg.admm_iters, grad_fn=grad_fn, diag=diag)
 
 
-def _run_dec_c(cfg, lt0, Xp, yp, A, grad_fn=None):
+def _run_dec_c(cfg, lt0, Xp, yp, A, grad_fn=None, diag=False):
     thetas, info = train_dec_c_gp(lt0, Xp, yp, A, rho=cfg.rho,
                                   iters=cfg.admm_iters,
                                   nested_iters=cfg.nested_iters,
-                                  nested_lr=cfg.nested_lr, grad_fn=grad_fn)
+                                  nested_lr=cfg.nested_lr, grad_fn=grad_fn,
+                                  diag=diag)
     return thetas.mean(0), thetas, info
 
 
-def _run_dec_apx(cfg, lt0, Xp, yp, A, grad_fn=None):
+def _run_dec_apx(cfg, lt0, Xp, yp, A, grad_fn=None, diag=False):
     thetas, info = train_dec_apx_gp(lt0, Xp, yp, A, rho=cfg.rho,
                                     kappa=cfg.kappa, iters=cfg.admm_iters,
-                                    grad_fn=grad_fn)
+                                    grad_fn=grad_fn, diag=diag)
     return thetas.mean(0), thetas, info
 
 
-def _run_dec_gapx(cfg, lt0, Xp, yp, A, grad_fn=None):
+def _run_dec_gapx(cfg, lt0, Xp, yp, A, grad_fn=None, diag=False):
     thetas, info = train_dec_gapx_gp(lt0, Xp, yp, A, rho=cfg.rho,
                                      kappa=cfg.kappa, iters=cfg.admm_iters,
-                                     grad_fn=grad_fn)
+                                     grad_fn=grad_fn, diag=diag)
     return thetas.mean(0), thetas, info
 
 
-def _run_fact_sparse(cfg, lt0, Xp, yp, A, grad_fn=None):
+def _run_fact_sparse(cfg, lt0, Xp, yp, A, grad_fn=None, diag=False):
     # collapsed-bound FACT counterpart: joint Adam over (theta, Z); the
     # optimized inducing sets ride info["Z"], so GPFleet caches the sparse
     # factors from the Z the bound was tightened over
@@ -94,12 +97,12 @@ def _run_fact_sparse(cfg, lt0, Xp, yp, A, grad_fn=None):
     return lt, lt.expand(Xp.shape[0], lt.shape[0]), {"nll": vals, "Z": Z}
 
 
-def _run_dec_apx_sparse(cfg, lt0, Xp, yp, A, grad_fn=None):
+def _run_dec_apx_sparse(cfg, lt0, Xp, yp, A, grad_fn=None, diag=False):
     # eq. 34 ADMM with the O(Ni m^2) collapsed-bound local gradient swapped
     # in through the grad_fn hook
     if grad_fn is None:
         grad_fn = make_sparse_grad(cfg.sparse_m, jitter=cfg.jitter)
-    return _run_dec_apx(cfg, lt0, Xp, yp, A, grad_fn=grad_fn)
+    return _run_dec_apx(cfg, lt0, Xp, yp, A, grad_fn=grad_fn, diag=diag)
 
 
 TRAINERS: dict[str, TrainerSpec] = {s.name: s for s in (

@@ -50,6 +50,20 @@ as here. The kernels compute in float32 either way.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_gp --sparse-m 512 \
       --method npae-sparse --agents 4 --per-agent 8100 --dtype float64
+
+Fitted-fleet persistence and metrics, in the reference's formats:
+
+  --save-fleet DIR        after fitting, `GPFleet.save` the factors +
+                          config + consensus graph to DIR
+  --from-checkpoint DIR   skip building and fitting: `GPFleet.load` DIR
+                          (saved by either package) and serve it
+  --metrics-dump PATH     at exit, write the Prometheus text dump of the
+                          `obs` default registry to PATH
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_gp --device cpu \
+      --agents 4 --per-agent 64 --requests 2 --save-fleet /tmp/fleet
+  PYTHONPATH=src python -m repro_torch.launch.serve_gp --device cpu \
+      --requests 4 --from-checkpoint /tmp/fleet --metrics-dump /tmp/m.txt
 """
 from __future__ import annotations
 
@@ -62,7 +76,9 @@ import torch
 from ..core.gp import pack, stripe_partition
 from ..data import gp_sample_field, random_inputs
 from ..device import resolve_device
-from ..fleet import FleetConfig, GPFleet, method_names, trainer_names
+from ..fleet import (FleetConfig, GPFleet, method_names, trainer_names,
+                     validate_config)
+from ..obs import prometheus_text
 
 _TRUE_THETA = ([1.2, 0.3], 1.3, 0.1)
 
@@ -162,9 +178,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--agents", type=int, default=8)
     ap.add_argument("--per-agent", type=int, default=256)
-    ap.add_argument("--method", default="rbcm",
+    ap.add_argument("--method", default=None,
                     type=lambda s: s.replace("-", "_"),
-                    choices=methods + cen, help="prediction method")
+                    choices=methods + cen,
+                    help="prediction method (default: rbcm, or the saved "
+                         "config's with --from-checkpoint)")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--batch", type=int, default=256,
                     help="micro-batch size")
@@ -205,15 +223,83 @@ def main(argv=None):
                          "where a float32 Kmm Cholesky fails")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--save-fleet", default=None, metavar="DIR",
+                    help="after fitting, persist the fleet (factors + "
+                         "config + graph) with GPFleet.save")
+    ap.add_argument("--from-checkpoint", default=None, metavar="DIR",
+                    help="GPFleet.load a saved fleet and serve it without "
+                         "refitting (build and train flags are ignored)")
+    ap.add_argument("--metrics-dump", default=None, metavar="PATH",
+                    help="at exit, write the Prometheus text dump of the "
+                         "metrics registry to PATH")
     args = ap.parse_args(argv)
     if args.train_iters < 0:
         ap.error("--train-iters must be >= 0")
     if args.observe_every < 0:
         ap.error("--observe-every must be >= 0")
-    if args.online and args.method.startswith("cen_"):
+    try:
+        _serve(args, ap)
+    finally:
+        if args.metrics_dump:
+            with open(args.metrics_dump, "w") as fh:
+                fh.write(prometheus_text())
+            print(f"metrics dump (Prometheus text) -> {args.metrics_dump}")
+
+
+def _load(args, ap, device):
+    """The --from-checkpoint fleet, with a --method override folded into
+    its config (validated like a built config). Returns (fleet, method)."""
+    fleet = GPFleet.load(args.from_checkpoint, device=device)
+    method = args.method or fleet.config.method
+    if args.online and not fleet.config.online:
+        ap.error("--online: this checkpoint was not saved from an online "
+                 "fleet (no window state to resume); refit with --online "
+                 "--save-fleet")
+    if not method.startswith("cen_"):
+        try:
+            fleet.config = fleet.config.replace(method=method)
+            validate_config(fleet.config)
+        except ValueError as e:
+            ap.error(str(e))
+    if "grbcm" in method and fleet.fitted_aug is None:
+        ap.error(f"checkpoint carries no augmented/communication experts "
+                 f"for {method}; save the fleet with a grbcm method "
+                 f"configured")
+    return fleet, method
+
+
+def _serve(args, ap):
+    """Build (or load) the fleet and serve it in the mode the flags
+    select."""
+    method = args.method or FleetConfig.method
+    if args.online and method.startswith("cen_"):
         ap.error("centralized cen_* references serve on the replicated "
                  "engine only")
-    base = args.method[4:] if args.method.startswith("cen_") else args.method
+    device = resolve_device(args.device)
+    gen = torch.Generator(device).manual_seed(0)
+    t0 = time.perf_counter()
+    if args.from_checkpoint:
+        fleet, method = _load(args, ap, device)
+        if args.save_fleet:
+            print(f"fleet re-saved -> {fleet.save(args.save_fleet)}")
+        _sync(device)
+        dtype = fleet.fitted.Xp.dtype
+        print(f"fleet: M={fleet.num_agents} agents x "
+              f"Ni={fleet.fitted.Xp.shape[1]} points (replicated, "
+              f"{str(dtype).removeprefix('torch.')}, {device}); loaded "
+              f"from {args.from_checkpoint} (no refit) in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    else:
+        fleet = _build(args, method, device, gen)
+        if args.save_fleet:
+            print(f"fleet saved -> {fleet.save(args.save_fleet)}")
+    _serve_batches(args, fleet, method, gen)
+
+
+def _build(args, method, device, gen):
+    """The synthetic fleet of the flags, fitted (and trained with
+    --train-iters)."""
+    base = method[4:] if method.startswith("cen_") else method
     cfg = FleetConfig(num_agents=args.agents, method=base, chunk=args.chunk,
                       dac_iters=args.dac_iters, eta_nn=args.eta_nn,
                       stream_mean=not args.no_stream, trainer=args.trainer,
@@ -221,9 +307,6 @@ def main(argv=None):
                       fact_steps=args.train_iters or FleetConfig.fact_steps,
                       online=args.online, sparse_m=args.sparse_m,
                       inducing_init=args.inducing_init)
-    device = resolve_device(args.device)
-    gen = torch.Generator(device).manual_seed(0)
-
     t0 = time.perf_counter()
     dtype = getattr(torch, args.dtype)
     Xp, yp = build_data(gen, args.agents, args.per_agent, dtype)
@@ -244,27 +327,33 @@ def main(argv=None):
         theta = torch.exp(fleet.log_theta).tolist()
         print("trained theta (l_1..l_D, sigma_f, sigma_eps): "
               + ", ".join(f"{t:.4f}" for t in theta))
+    return fleet
 
+
+def _serve_batches(args, fleet: GPFleet, method: str, gen):
+    """Ragged requests, micro-batched, served through `fleet` (or the
+    streaming loop with --online)."""
+    device, dtype = fleet.device, fleet.fitted.Xp.dtype
     requests = request_stream(gen, args.requests, args.batch, dtype)
     batches, total, slices = micro_batches(requests, args.batch)
     print(f"queue: {args.requests} requests, {total} queries "
           f"-> {batches.shape[0]} micro-batches of {args.batch}")
 
     if args.online:
-        serve_online(args, fleet, args.method, batches, total, gen)
+        serve_online(args, fleet, method, batches, total, gen)
         return
 
-    fleet.predict(batches[0], method=args.method)       # warm-up
+    fleet.predict(batches[0], method=method)             # warm-up
     _sync(device)
     t0 = time.perf_counter()
-    means = [fleet.predict(b, method=args.method)[0] for b in batches]
+    means = [fleet.predict(b, method=method)[0] for b in batches]
     _sync(device)
     dt = time.perf_counter() - t0
     flat = torch.cat(means)
     answers = [flat[a:b] for a, b in slices]            # per request
-    print(f"{args.method}: served {total} queries in {dt * 1e3:.1f} ms "
+    print(f"{method}: served {total} queries in {dt * 1e3:.1f} ms "
           f"({total / dt:.0f} q/s, {len(batches) / dt:.1f} batches/s, "
-          f"stream_mean={cfg.stream_mean}); "
+          f"stream_mean={fleet.config.stream_mean}); "
           f"last request -> {answers[-1].shape[0]} predictions")
 
 

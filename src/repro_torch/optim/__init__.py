@@ -1,4 +1,4 @@
 """Optimizers of the port (counterpart of repro.optim), built in-repo."""
-from .adam import Optimizer, adam, apply_updates
+from .adam import Optimizer, adam, apply_updates, sgd
 
-__all__ = ["Optimizer", "adam", "apply_updates"]
+__all__ = ["Optimizer", "adam", "apply_updates", "sgd"]

@@ -32,7 +32,34 @@ def apply_updates(params, updates):
 
 
 def _lr_at(lr, step):
-    return lr(step) if callable(lr) else lr
+    """A callable lr gets the step as a Python int, so a schedule computes
+    in double precision as the reference's does under x64 (a torch int
+    tensor would promote it to float32); on the card that reads the step
+    back from the device, once a step."""
+    return lr(int(step)) if callable(lr) else lr
+
+
+def sgd(lr, momentum: float = 0.0) -> Optimizer:
+    """SGD with optional heavy-ball momentum; `lr` a number or a callable
+    of the 1-based step, as in the reference."""
+    def init(params):
+        dev = _leaves(params)[0].device
+        mu = _tree_map(torch.zeros_like, params) if momentum else None
+        return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                "mu": mu}
+
+    def update(grads, state, params=None):
+        step = state["step"] + 1
+        lr_t = _lr_at(lr, step)
+        if momentum:
+            mu = _tree_map(lambda m, g: momentum * m + g, state["mu"], grads)
+            updates = _tree_map(lambda m: -lr_t * m, mu)
+        else:
+            mu = None
+            updates = _tree_map(lambda g: -lr_t * g, grads)
+        return updates, {"step": step, "mu": mu}
+
+    return Optimizer(init, update)
 
 
 def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,

@@ -17,6 +17,7 @@ from repro.fleet import GPFleet as JGPFleet
 from repro_torch.fleet import (METHODS, FleetConfig, GPFleet, get_method,
                                validate_config)
 from repro_torch.launch import serve_gp
+from repro_torch.obs import TraceRecorder
 
 torch.set_num_threads(2)
 
@@ -95,7 +96,8 @@ def test_fit_with_training_is_not_ported(data):
     """Training is ported (tests/test_torch_training.py, the sparse
     trainers in tests/test_torch_sparse.py, gapx and dec-gapx in
     tests/test_torch_fleet_methods.py); what is not yet is the sharded
-    loop and the training trace. The sparse trainers need sparse_m, as the
+    loop. The training trace is ported (tests/test_torch_obs.py). The
+    sparse trainers need sparse_m, as the
     reference's rule says, and train with it; the gapx trainers train on
     the augmented data."""
     Xp, yp, _ = data
@@ -116,8 +118,11 @@ def test_fit_with_training_is_not_ported(data):
                         device="cpu").fit(Xp, yp, log_theta0=LOG_THETA)
         assert fleet.fitted.Z.shape == (4, 8, 2)
         assert bool(torch.isfinite(fleet.predict(data[2])[0]).all())
-    with pytest.raises(NotImplementedError, match="not yet ported.*item 4"):
-        GPFleet(FleetConfig(), device="cpu").fit(Xp, yp, trace=object())
+    rec = TraceRecorder()
+    GPFleet(FleetConfig(admm_iters=2), device="cpu").fit(
+        Xp, yp, log_theta0=LOG_THETA, trace=rec)
+    assert rec.last()["name"] == "dec-apx" and rec.last()["nll"].shape == (2,
+                                                                          4)
 
 
 def test_fleet_shape_errors(data):

@@ -169,9 +169,15 @@ def test_unported_trainers_say_not_yet_ported(trainer, item):
 
 
 def test_fit_trace_is_not_yet_ported():
-    Xp, yp = np.zeros((4, 3, 2)), np.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        GPFleet(FleetConfig(), device="cpu").fit(Xp, yp, trace=object())
+    """fit(trace=) is ported now (ROADMAP A4): the fleet accepts a
+    TraceRecorder and records the trainer's diagnostics on it instead of
+    refusing (tests/test_torch_obs.py holds them to the reference)."""
+    from repro_torch.obs import TraceRecorder
+    rng = np.random.default_rng(0)
+    Xp, yp = rng.uniform(0, 2, (4, 6, 2)), rng.normal(size=(4, 6))
+    rec = TraceRecorder()
+    GPFleet(FleetConfig(admm_iters=2), device="cpu").fit(Xp, yp, trace=rec)
+    assert len(rec) == 1 and rec.last()["primal_residuals"].shape == (2,)
 
 
 def test_training_defaults_to_the_card(no_card):

@@ -133,8 +133,12 @@ def worker(src: str) -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def run_trees(script: str, worker_fn, doc: str, argv=None) -> int:
+    """The command line of the compare tools: `--tree NAME=PATH` checkouts
+    run in `--order`, each in its own process (`script --worker SRC`,
+    whose last line is `worker_fn(SRC)` as JSON), the card's name and
+    power limit first, every line also appended to `--out`."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--tree", action="append", default=[],
                     help="NAME=PATH of a checkout to time")
     ap.add_argument("--order", help="comma-separated NAMEs, run in turn")
@@ -142,11 +146,11 @@ def main(argv=None) -> int:
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.worker)), flush=True)
+        print(json.dumps(worker_fn(args.worker)), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
-        print("rbf_matvec_compare: no CUDA device", file=sys.stderr)
+        print(f"{Path(script).stem}: no CUDA device", file=sys.stderr)
         return 1
     trees = dict(t.split("=", 1) for t in args.tree)
     card = subprocess.run(
@@ -158,7 +162,7 @@ def main(argv=None) -> int:
     rc = 0
     for name in args.order.split(","):
         src = str((Path(trees[name]) / "src").resolve())
-        proc = subprocess.run([sys.executable, __file__, "--worker", src],
+        proc = subprocess.run([sys.executable, script, "--worker", src],
                               capture_output=True, text=True,
                               env={**os.environ, "PYTHONPATH": ""})
         if proc.returncode != 0:
@@ -176,4 +180,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run_trees(__file__, worker, __doc__))

@@ -5,7 +5,8 @@ fleet's 8,100: two findings of chip_smoke.py's methods phase, each held
 against the reference where it can run.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python3 tools/reference_witness.py \\
-        [--per-agent 500,1000,2000] [--seed 0] [--parts c8,gapx]
+        [--per-agent 500,1000,2000] [--seed 0]
+        [--parts c8,gapx,npae,nn_npae,fullgp]
 
   c8    DEC-NPAE* (npae_star) on a 4-agent path fleet of one draw of the
         paper's field (true theta, 256 held-out queries): RMSE against
@@ -20,6 +21,18 @@ against the reference where it can run.
         kappa and the NLL's gradient all in proportion to N, the ADMM
         step is the same at every N): sigma_eps per agent and the
         residuals from both packages.
+
+  npae  npae at FleetConfig's 500 JOR and 200 DAC iterations (JOR's
+        omega = 2/M) with cen_npae beside, on the c8 fleet: RMSE against
+        the noise-free field and the final JOR and DAC residuals, from
+        both packages (C9).
+  nn_npae  nn_npae at FleetConfig's 2,000 DALE iterations and eta_NN =
+        0.1 with cen_npae beside: RMSE, the final DALE residual and the
+        agents CBNN selects per query, from both packages (C9).
+  fullgp  predict_full over all 4 N_i points of the c8 field at the true
+        theta in float32 and in float64, from both packages: whether
+        the moments are finite (a float32 Cholesky that fails gives NaN
+        in both) and their RMSE against the noise-free field.
 
 Each (part, size) prints one JSON line. The paper fleet itself is not run
 here: the reference's NPAE terms hold 16 Gram blocks of 8,100^2 points at
@@ -96,6 +109,85 @@ def c8(per_agent: int, seed: int) -> dict:
     return out
 
 
+def _npae_family(part: str, methods, per_agent: int, seed: int) -> dict:
+    """Serve `methods` ((name, engine keywords) pairs) from both packages
+    on the c8 fleet at the true theta: RMSE against the noise-free field,
+    every final residual the engine reports, and the mean count of agents
+    CBNN selects per query where there is a mask."""
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    from repro.core.consensus import path_graph as jpath_graph
+    from repro.core.prediction import PredictionEngine as JEngine
+    from repro.core.prediction import fit_experts as jfit_experts
+    from repro_torch.core.consensus import path_graph
+    from repro_torch.core.gp import pack
+    from repro_torch.core.prediction import PredictionEngine, fit_experts
+    Xp, yp, Xq, fq = paper_field(per_agent, seed)
+    lt = pack(*TRUE_THETA)
+    jfit = jfit_experts(jnp.asarray(lt.numpy()), jnp.asarray(Xp),
+                        jnp.asarray(yp))
+    tfit = fit_experts(lt, torch.from_numpy(Xp), torch.from_numpy(yp))
+    out = {"part": part, "per_agent": per_agent, "seed": seed}
+    for pkg in ("reference", "port"):
+        res = {}
+        for method, kw in methods:
+            if pkg == "reference":
+                e = JEngine(jfit, jpath_graph(4), **kw)
+                m, _, info = e.predict(method, jnp.asarray(Xq))
+            else:
+                e = PredictionEngine(tfit, path_graph(4), device="cpu", **kw)
+                m, _, info = e.predict(method, torch.from_numpy(Xq))
+            r = {"rmse": float(np.sqrt(np.mean((np.asarray(m) - fq) ** 2)))}
+            for k in ("jor_residual", "dac_residual", "dale_residual"):
+                if k in info:
+                    r[k] = float(info[k])
+            if "mask" in info:
+                r["agents_per_query"] = float(
+                    np.asarray(info["mask"]).sum(0).mean())
+            res[method] = r
+        out[pkg] = res
+    return out
+
+
+def npae(per_agent: int, seed: int) -> dict:
+    return _npae_family("npae", (("npae", {"jor_iters": 500,
+                                           "dac_iters": 200}),
+                                 ("cen_npae", {})), per_agent, seed)
+
+
+def nn_npae(per_agent: int, seed: int) -> dict:
+    return _npae_family("nn_npae", (("nn_npae", {"dale_iters": 2_000,
+                                                 "eta_nn": 0.1}),
+                                    ("cen_npae", {})), per_agent, seed)
+
+
+def fullgp(per_agent: int, seed: int) -> dict:
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    from repro.core.gp.exact import predict_full as j_predict_full
+    from repro_torch.core.gp import pack, predict_full
+    Xp, yp, Xq, fq = paper_field(per_agent, seed)
+    X, y = Xp.reshape(-1, 2), yp.reshape(-1)
+    lt = pack(*TRUE_THETA).numpy()
+    out = {"part": "fullgp", "points": int(X.shape[0]), "seed": seed}
+    for name in ("float32", "float64"):
+        args = [a.astype(name) for a in (lt, X, y, Xq)]
+        res = {}
+        for pkg in ("reference", "port"):
+            if pkg == "reference":
+                m, v = j_predict_full(*(jnp.asarray(a) for a in args))
+            else:
+                m, v = predict_full(*(torch.from_numpy(a) for a in args))
+            m, v = np.asarray(m, np.float64), np.asarray(v, np.float64)
+            finite = bool(np.isfinite(m).all() and np.isfinite(v).all())
+            res[pkg] = {"finite": finite, "rmse": float(
+                np.sqrt(np.mean((m - fq) ** 2))) if finite else None}
+        out[name] = res
+    return out
+
+
 def gapx(per_agent: int, seed: int) -> dict:
     import jax.numpy as jnp
     import numpy as np
@@ -156,7 +248,8 @@ def main(argv=None) -> int:
     import torch
     jax.config.update("jax_enable_x64", True)
     torch.set_num_threads(4)
-    parts = {"c8": c8, "gapx": gapx}
+    parts = {"c8": c8, "gapx": gapx, "npae": npae, "nn_npae": nn_npae,
+             "fullgp": fullgp}
     for part in args.parts.split(","):
         for n in (int(v) for v in args.per_agent.split(",")):
             print(json.dumps(parts[part](n, args.seed)), flush=True)
