@@ -146,6 +146,47 @@ Phases, one JSON line each:
            saved fleet's, and for the online fleet that one observe round
            (one cholupdate launch) leaves both states bitwise equal; it
            reports save ms, load ms and bytes on disk.
+  chaos    degraded-mode consensus: the serve phase's fleet (rbcm's
+           M = 4 path, 200 DAC sweeps, float32, streamed means) serves poe,
+           gpoe, bcm, rbcm, nn_rbcm, npae, npae_star and nn_npae on four
+           256-query tiles per fault plan through GPFleet.predict(
+           fault_plan=, allow_degraded=True). It checks that a consensus-
+           free plan (straggle_every=2, fail_every=5) gives the exact
+           result bit for bit; Dropout(0) (3 alive, 1 excluded),
+           Dropout(1) (the path splits: {2, 3} served, 2 components) and
+           nan_agents=(2,) (1 scrubbed) each DAC method within the DAC
+           rounding bound of its centralized form over the surviving
+           agents, and the NPAE family within its residual bound of the
+           centralized NPAE solve over the same agents; a mid-run Dropout(3, at=50, until=150) with
+           edge_loss=0.2 finite, under degraded_tol and below the RMSE
+           gate (its distance from the exact result reported); no method
+           refused (ConsensusDiverged) under any of these plans; rbf_matvec
+           once per tile and expert set under every plan; every plan
+           that drops all agents raising ConsensusDiverged, cen_* a
+           ValueError, and FleetDegraded without allow_degraded;
+           health()'s census and totals; a degraded float32 tile against
+           the port in float64 (F32_MEAN_TOL); and on the M = 10 fleet
+           that Dropout(0) either raises ConsensusDiverged or serves
+           under degraded_tol (which one is reported). Degraded and exact
+           batch ms are reported side by side.
+  frontdoor the serving front door (launch.scheduler): tenants rbcm
+           (slots 256, 512, 1,024) and npae (256) of the paper fleet on
+           one ServingScheduler. It checks 24 ragged requests of 1-700
+           rows against GPFleet.predict on each request's rows
+           (F32_MEAN_TOL), rbf_matvec once per dispatched rbcm tile, the
+           tenant-labelled counters read back from GET /metrics of
+           --metrics-port's server, and that no tenant meets a new
+           geometry after warm-up in any stage; it runs an open-loop
+           Poisson load for 5 s (rbcm 30, npae 5 requests/s) and a
+           closed-loop burst of 64 rbcm requests, reporting q/s, p50 /
+           p95 / p99 latency, padding and engine seconds; it injects
+           fail_every=5 (retried equals injected, answers as without),
+           straggle_every=7 of 50 ms under a 25 ms watchdog (the
+           straggled requests fail with SchedulerStalled, the tenant
+           recovers) and a Dropout(0) tenant (every dispatch counted
+           degraded, answers the degraded GPFleet.predict's); and it runs
+           serve_gp.main(--scheduler --loadgen 30 --duration 2
+           --fault-dropout 0 --fault-fail-every 5) at the paper size.
   lm       LM serving: internlm2-1.8b at its published widths and depth
            (24 layers, d 2,048, 16 query / 8 KV heads, vocab 92,544,
            1.89 B float32 parameters drawn from the seed) through the
@@ -185,6 +226,7 @@ and non-zero after any failed phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import shutil
@@ -362,7 +404,7 @@ METHOD_TILES = 4
 # and the communication expert); the NPAE terms take k^T alpha densely, as
 # the reference's npae_terms_cached does
 MATVEC_PER_TILE = {"grbcm": 2, "nn_grbcm": 2, "cen_grbcm": 2, "rbcm": 1,
-                   "nn_poe": 1,
+                   "poe": 1, "gpoe": 1, "bcm": 1, "nn_poe": 1,
                    "nn_gpoe": 1, "nn_bcm": 1, "nn_rbcm": 1, "npae": 0,
                    "npae_star": 0, "nn_npae": 0, "cen_npae": 0}
 UNIT = 2.0 ** -24                     # float32 unit roundoff
@@ -444,6 +486,70 @@ FLEET_SIZES = (10, 20, 40)
 FLEET_METHODS = ("rbcm", "nn_rbcm", "npae", "npae_star")
 DAC_UNTIL_TOL = 1e-9                  # dac_until's default tolerance
 DIAG_SWEEPS = (1, 10, 50, 100, 200)   # trajectory points reported
+# chaos phase: the serve fleet under fault plans (repro_torch.chaos), each
+# method on CHAOS_TILES tiles of BATCH queries through GPFleet.predict(
+# fault_plan=, allow_degraded=True). A consensus-free plan must give the
+# exact result bit for bit; a round-0 dropout, a partition and a NaN agent
+# are exact masked aggregation over the agents CHAOS_KEEP lists (the DAC
+# family gated by DAC_ROUND, the NPAE family by NPAE_ROUND); the mid-run
+# dropout with edge loss is an estimate, gated by the engine's residual
+# guard (degraded_tol) and the RMSE. A method the guard refuses under any
+# of these plans fails the phase.
+CHAOS_METHODS = ("poe", "gpoe", "bcm", "rbcm", "nn_rbcm", "npae",
+                 "npae_star", "nn_npae")
+DAC_CHAOS = CHAOS_METHODS[:5]
+CHAOS_TIMED = ("rbcm", "npae", "nn_npae")
+CHAOS_TILES = METHOD_TILES
+CHAOS_PLANS = {"free": dict(straggle_every=2, fail_every=5),
+               "drop0": dict(dropouts=((0, 0),)),
+               "drop1": dict(dropouts=((1, 0),)),
+               "nan2": dict(nan_agents=(2,)),
+               "midrun": dict(seed=7, dropouts=((3, 50, 150),),
+                              edge_loss=0.2)}
+CHAOS_CONSENSUS_PLANS = ("drop0", "drop1", "nan2", "midrun")
+CHAOS_CENSUS = {
+    "drop0": dict(alive_agents=3, excluded_agents=1, n_components=1,
+                  scrubbed_agents=0),
+    "drop1": dict(alive_agents=3, excluded_agents=2, n_components=2,
+                  scrubbed_agents=0),      # {0} cut off, {2, 3} served
+    "nan2": dict(alive_agents=4, excluded_agents=0, n_components=1,
+                 scrubbed_agents=1),
+    "midrun": dict(alive_agents=4, excluded_agents=0, n_components=1,
+                   scrubbed_agents=0)}
+CHAOS_KEEP = {"drop0": [1, 2, 3], "drop1": [2, 3], "nan2": [0, 1, 3]}
+# The engine's residual guard. Its default (the reference's), 1e-2, is an
+# absolute spread, below the float32 rounding floor of DAC at this fleet's
+# payloads: a converged float32 DAC keeps a spread of a few ulps of the
+# summed |beta_i / var_i|, which grows with the points an agent holds (the
+# exact path's own rbcm residual is 0.039 on the serve phase's 4,096
+# queries, an H100 80GB HBM3 at 700 W). The reference in float32 reports
+# 0.0156 under Dropout(0) at 4,000 points an agent already
+# (tools/reference_witness.py --parts c11), so at 1e-2 the guard refuses
+# the degraded rbcm tiles the masked sweeps serve correctly. The phase
+# reports that outcome, then serves at 1.0: a decade and more above the
+# float32 residuals of every plan here, and a decade and more below the
+# M = 10 fleet's unconverged 31-138, which the guard must still refuse.
+# Set only within _degraded_tol, so no other phase serves at it.
+CHAOS_DEGRADED_TOL = 1.0
+# frontdoor phase: two tenants of one ServingScheduler on the paper fleet,
+# rbcm (slots 256, 512, 1,024) and npae (the registry's cap, 256)
+FRONTDOOR_MAX_ROWS = 700              # rows of a ragged request, at most
+FRONTDOOR_RAGGED = 12                 # ragged requests a tenant, checked
+FRONTDOOR_RATES = {"rbcm": 30.0, "npae": 5.0}   # open-loop requests/s
+FRONTDOOR_SECONDS = 5.0
+FRONTDOOR_QUEUE_ROWS = 8192           # open-loop admission: reject above
+FRONTDOOR_BURST = 64                  # closed-loop burst, rbcm requests
+FRONTDOOR_FAULT_REQUESTS = 21         # requests a serving-fault tenant
+FRONTDOOR_STRAGGLE_MS, FRONTDOOR_STALL_MS = 50.0, 25.0
+# the launcher keeps the reference's guard (1e-2), so it serves the
+# degraded fleet in float64, whose DAC floor lies far below it (the
+# rbf_matvec kernel computes in float32 either way)
+FRONTDOOR_LAUNCHER_ARGS = ["--agents", "4", "--per-agent", "8100",
+                           "--chunk", "256", "--batch", "1024",
+                           "--dac-iters", "200", "--dtype", "float64",
+                           "--scheduler", "--loadgen", "30", "--duration",
+                           "2", "--fault-dropout", "0",
+                           "--fault-fail-every", "5"]
 
 
 def card_line() -> str:
@@ -1349,12 +1455,14 @@ def _check_dac_vs_cen(method, got, want, scales, dac_iters, M):
     return share
 
 
-def _npae_bound(H, kA, b, r, dac_iters, omega=None, A=None, unit=UNIT):
+def _npae_bound(H, kA, b, r, dac_iters, omega=None, A=None, unit=UNIT,
+                n_dac=None):
     """The per-query bound of the NPAE gate (see NPAE_ROUND) for the
     systems H (Nt, M, M) of one tile with right-hand sides b (Nt, M, 2),
-    final residuals r (Nt,), `dac_iters` DAC sweeps and the unit roundoff
-    of the run's dtype: JOR at relaxation `omega`, or DALE on the
-    adjacency `A`. Computed in float64."""
+    final residuals r (Nt,), `dac_iters` DAC sweeps over `n_dac` agents
+    (default M) and the unit roundoff of the run's dtype: JOR at
+    relaxation `omega`, or DALE on the adjacency `A`. Computed in
+    float64."""
     import torch
     H, kA, b = H.double(), kA.double(), b.double()
     r = torch.as_tensor(r, dtype=H.dtype, device=H.device)
@@ -1376,7 +1484,7 @@ def _npae_bound(H, kA, b, r, dac_iters, omega=None, A=None, unit=UNIT):
     kappa = torch.linalg.inv(I_G).abs().sum(-1).amax(-1)
     q = torch.linalg.solve(H, b)
     qmax = q.abs().amax((-2, -1))
-    dac = 2 * dac_iters * M * unit \
+    dac = 2 * dac_iters * (M if n_dac is None else n_dac) * unit \
         * (kA.T[..., None] * q).abs().sum(1).amax(-1)
     return kA.abs().sum(0) * kappa * (r + NPAE_ROUND * unit * qmax) + dac
 
@@ -2069,7 +2177,10 @@ def phase_train(ctx):
             continue
         got = {tuple(sorted(x["labels"].items())): x["value"]
                for x in m["series"]}
-        back = {tuple(sorted(lb.items())): v for lb, v in fams[name]}
+        # a counter with no series yet (the engine's degraded-mode
+        # counters before any degraded prediction) has no sample lines
+        back = {tuple(sorted(lb.items())): v
+                for lb, v in fams.get(name, [])}
         if got != back:
             raise AssertionError(f"{name}: metrics() {got} != Prometheus "
                                  f"text {back}")
@@ -2726,6 +2837,627 @@ def phase_persist(ctx):
     return out
 
 
+def _serve_fleet(ctx):
+    """The serve phase's paper fleet (rbcm, M = 4 on a path, 200 DAC
+    sweeps, chunk 256, float32, streamed means), fitted anew when that
+    phase did not leave it."""
+    if "fleet" not in ctx:
+        import torch
+        from repro_torch.core.gp import pack
+        from repro_torch.fleet import FleetConfig, GPFleet
+        Xp, yp, _, _ = paper_data(ctx)
+        lt = pack(*TRUE_THETA, dtype=torch.float32, device=Xp.device)
+        ctx["fleet"] = GPFleet(FleetConfig(stream_mean=True),
+                               device=DEVICE).fit(Xp, yp, log_theta0=lt,
+                                                  train=False)
+    return ctx["fleet"]
+
+
+def _tiles(predict, Xq, method, plan):
+    """CHAOS_TILES tiles of BATCH queries through `predict` (GPFleet.
+    predict) under `plan` with allow_degraded -> (per-tile outputs, ms a
+    tile); the first tile served once more beforehand as a warm-up."""
+    import torch
+    kw = {} if plan is None else {"fault_plan": plan,
+                                  "allow_degraded": True}
+    predict(Xq[:BATCH], method=method, **kw)
+    torch.cuda.synchronize()
+    outs, ms = [], []
+    for i in range(CHAOS_TILES):
+        t0 = time.perf_counter()
+        outs.append(predict(Xq[i * BATCH:(i + 1) * BATCH], method=method,
+                            **kw))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return outs, ms
+
+
+def _degraded_npae_gate(method, cfg, terms, info, keep, chaos, cen):
+    """The NPAE gate of a degraded tile, the bound of NPAE_ROUND with the
+    reported residual for every query (the tile's largest, so the bound
+    only widens), taken on the agents that iterate. JOR (npae, npae_star)
+    is a per-query solve in which the decoupled rows of excluded agents
+    never couple back: the payload agents `keep` solve their own block.
+    DALE (nn_npae) runs over the readout component on the live subgraph
+    (chaos["A_live"]), a scrubbed member included: it relays, holding its
+    decoupled row. The DAC readout of npae and npae_star sums over the
+    readout component. `cen` is the centralized solve over `keep`."""
+    import torch
+    from repro_torch.core.consensus import optimal_omega
+    from repro_torch.core.prediction.decentralized import (_masked_system,
+                                                           _rel_jitter)
+    mu, kA, CA = terms
+    M = kA.shape[0]
+    mk = info["mask"].to(kA.dtype)
+    H = _rel_jitter(_masked_system(CA, mk.T), cfg.npae_jitter)
+    comp = torch.nonzero(chaos["readout"] > 0).flatten().to(H.device)
+    k = comp if method == "nn_npae" \
+        else torch.as_tensor(keep, device=H.device)
+    Hs = H[:, k][:, :, k]
+    kAs = (kA * mk)[k]
+    b = torch.stack([(mu * mk)[k].T, kAs.T], -1)
+    key = "dale_residual" if method == "nn_npae" else "jor_residual"
+    r = torch.full((H.shape[0],), float(info[key]), dtype=torch.float64,
+                   device=H.device)
+    if method == "nn_npae":
+        kw = {"A": chaos["A_live"][comp][:, comp], "dac_iters": 0}
+    else:
+        omega = (2.0 / M) * 0.999 if method == "npae" \
+            else optimal_omega(H, cfg.pm_iters)
+        kw = {"omega": omega, "dac_iters": cfg.dac_iters,
+              "n_dac": int(comp.numel())}
+    bound = _npae_bound(Hs, kAs, b, r, unit=UNIT, **kw)
+    return _check_npae(method, info["_out"], cen, bound)
+
+
+@contextlib.contextmanager
+def _degraded_tol(engine, tol):
+    """The engine's residual guard at `tol` within the block, restored
+    after it."""
+    default = engine.degraded_tol
+    engine.degraded_tol = tol
+    try:
+        yield
+    finally:
+        engine.degraded_tol = default
+
+
+def phase_chaos(ctx):
+    """Degraded-mode consensus on the paper fleet (see the module
+    docstring)."""
+    from repro_torch.chaos import Dropout, FaultPlan
+    from repro_torch.core.consensus import ConsensusDiverged
+    fleet = _serve_fleet(ctx)
+    Xq = paper_data(ctx)[2]
+    default_tol = fleet.engine.degraded_tol
+    # the guard at the reference's default, on the first tile
+    try:
+        info = fleet.predict(Xq[:BATCH], fault_plan=FaultPlan(
+            dropouts=(Dropout(0),)), allow_degraded=True)[2]
+        at_default = {"outcome": "served",
+                      "dac_residual": float(info["dac_residual"])}
+    except ConsensusDiverged as e:
+        at_default = {"outcome": "ConsensusDiverged",
+                      "message": str(e)[:160]}
+    at_default["exact_dac_residual"] = float(
+        fleet.predict(Xq[:BATCH])[2]["dac_residual"])
+    with _degraded_tol(fleet.engine, CHAOS_DEGRADED_TOL):
+        out, failures = _chaos_under_plans(ctx, fleet)
+    out["rbcm_drop0_at_default_tol"] = {"degraded_tol": default_tol,
+                                        **at_default}
+    if failures:
+        emit({"phase": "chaos", "report_of_a_failed_phase": True, **out})
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def _chaos_under_plans(ctx, fleet):
+    """The chaos phase's plans, typed failures and float64 and M = 10
+    comparisons, at the engine's guard as set -> (report, failures)."""
+    import torch
+    from repro_torch.chaos import Dropout, FaultPlan
+    from repro_torch.core.consensus import ConsensusDiverged
+    from repro_torch.core.gp import pack, stripe_partition
+    from repro_torch.core.prediction import aggregation as agg
+    from repro_torch.fleet import FleetConfig, FleetDegraded, GPFleet
+    from repro_torch.kernels import rbf_matvec as K
+    cfg, eng = fleet.config, fleet.engine
+    Xp, yp, Xq, fq = paper_data(ctx)
+    n_q = CHAOS_TILES * BATCH
+    Xq, fq = Xq[:n_q], fq[:n_q]
+    Xt = Xq[:BATCH]
+    pv = fleet.fitted.prior_var
+    mu, var = eng._moments(fleet.fitted, Xt)
+    terms = eng._terms(fleet.fitted, Xt)
+    failures = []
+
+    def gate(fn, *args):
+        try:
+            return fn(*args)
+        except AssertionError as e:
+            failures.append(str(e))
+
+    plans = {name: FaultPlan(**kw) for name, kw in CHAOS_PLANS.items()}
+    out = {"agents": cfg.num_agents, "per_agent": int(Xp.shape[1]),
+           "dac_iters": cfg.dac_iters, "degraded_tol": eng.degraded_tol,
+           "dtype": "float32", "queries_per_plan": n_q,
+           "plans": {n: repr(p) for n, p in plans.items()}, "methods": {}}
+    exact, launches = {}, 0
+    for method in CHAOS_METHODS:
+        rep = {}
+        exact[method], ms = _tiles(fleet.predict, Xq, method, None)
+        rep["exact_batch_ms"] = sum(ms) / len(ms)
+        rep["exact_residuals"] = {
+            k: max(float(o[2][k]) for o in exact[method])
+            for k in ("dac_residual", "dale_residual", "jor_residual")
+            if k in exact[method][0][2]}
+        free, _ = _tiles(fleet.predict, Xq, method, plans["free"])
+        rep["free_plan_bitwise"] = all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and "degraded" not in b[2] for a, b in zip(exact[method], free))
+        if not rep["free_plan_bitwise"]:
+            failures.append(f"{method}: a consensus-free plan changed the "
+                            f"result")
+        for name in CHAOS_CONSENSUS_PLANS:
+            r = rep[name] = {}
+            K.reset_launches()
+            try:
+                outs, ms = _tiles(fleet.predict, Xq, method, plans[name])
+            except ConsensusDiverged as e:
+                r["diverged"] = str(e)[:300]
+                failures.append(f"{method} under {name}: {r['diverged']}")
+                continue
+            torch.cuda.synchronize()
+            # the warm-up tile and CHAOS_TILES tiles, one launch a tile
+            got, want = K.launches, MATVEC_PER_TILE[method] * (
+                CHAOS_TILES + 1)
+            launches += got
+            if got != want:
+                failures.append(f"{method} under {name}: rbf_matvec "
+                                f"launched {got} times, {want} expected")
+            info = outs[0][2]
+            mean = torch.cat([o[0] for o in outs])
+            varo = torch.cat([o[1] for o in outs])
+            census = {k: info[k] for k in ("alive_agents",
+                                           "excluded_agents",
+                                           "n_components",
+                                           "scrubbed_agents")}
+            r.update(batch_ms=sum(ms) / len(ms), **census,
+                     rmse_vs_field=_rmse(mean, fq),
+                     max_abs_diff_from_exact=float(
+                         (mean - torch.cat([o[0] for o in exact[method]]))
+                         .abs().max()))
+            for k in ("dac_residual", "dale_residual", "jor_residual"):
+                if k in info:
+                    r[k] = max(float(o[2][k]) for o in outs)
+            if info.get("degraded") is not True or \
+                    not bool(torch.isfinite(mean).all()) or \
+                    not bool(torch.isfinite(varo).all()) or \
+                    not bool((varo > 0).all()):
+                failures.append(f"{method} under {name}: not a finite, "
+                                f"flagged degraded result")
+            want_census = CHAOS_CENSUS.get(name)
+            if want_census is not None and census != want_census:
+                failures.append(f"{method} under {name}: census {census}, "
+                                f"{want_census} expected")
+            if name == "midrun" and method != "npae_star":   # C8
+                gate(_check_rmse, f"{method} under {name}",
+                     r["rmse_vs_field"])
+            keep = CHAOS_KEEP.get(name)
+            if keep is None:
+                continue
+            mk = info["mask"]
+            others = [i for i in range(cfg.num_agents) if i not in keep]
+            if bool(mk[others].any()):
+                failures.append(f"{method} under {name}: agents {others} "
+                                f"not excluded from the mask")
+            base = method[3:] if method.startswith("nn_") else method
+            if method in DAC_CHAOS:
+                fn = getattr(agg, base)
+                cen = fn(mu, var, pv, mask=mk) if base in ("bcm", "rbcm") \
+                    else fn(mu, var, mask=mk)
+                r["dec_vs_cen_share_of_bound"] = gate(
+                    _check_dac_vs_cen, f"{method} under {name}",
+                    outs[0][:2], cen, _dac_scales(method, mu, var, pv, mk),
+                    cfg.dac_iters, cfg.num_agents)
+            else:
+                info = dict(info, _out=outs[0][:2])
+                r["dec_vs_cen"] = gate(
+                    _degraded_npae_gate, method, cfg, terms, info, keep,
+                    eng._chaos_cache[plans[name]][0],
+                    agg.npae(*terms, pv, mask=mk))
+        out["methods"][method] = rep
+    ctx["launches_by_path"]["rbf_matvec"]["chaos"] = launches
+    out["rbf_matvec_launches"] = launches
+    out["batch_ms_exact_vs_drop0"] = {
+        m: [out["methods"][m]["exact_batch_ms"],
+            out["methods"][m]["drop0"].get("batch_ms")]
+        for m in CHAOS_TIMED}
+
+    # -- typed failures ----------------------------------------------------
+    typed = {}
+    for name, plan in (("all_at_0", FaultPlan(dropouts=tuple(
+            Dropout(i) for i in range(cfg.num_agents)))),
+                       ("all_mid_run", FaultPlan(dropouts=tuple(
+                           Dropout(i, at=20 * (i + 1))
+                           for i in range(cfg.num_agents))))):
+        for method in ("rbcm", "npae", "nn_npae"):
+            try:
+                fleet.predict(Xt, method=method, fault_plan=plan,
+                              allow_degraded=True)
+                failures.append(f"{method}: {name} did not raise "
+                                f"ConsensusDiverged")
+            except ConsensusDiverged:
+                typed[f"{method}_{name}"] = "ConsensusDiverged"
+    try:
+        fleet.predict(Xt, method="cen_rbcm", fault_plan=plans["drop0"])
+        failures.append("cen_rbcm served a consensus fault")
+    except ValueError:
+        typed["cen_rbcm_drop0"] = "ValueError"
+    try:
+        fleet.predict(Xt, method="rbcm", fault_plan=plans["drop0"])
+        failures.append("a degraded result was returned without "
+                        "allow_degraded")
+    except FleetDegraded as e:
+        typed["rbcm_drop0_not_allowed"] = "FleetDegraded"
+        if not torch.equal(e.result[0], fleet.predict(
+                Xt, method="rbcm", fault_plan=plans["drop0"],
+                allow_degraded=True)[0]):
+            failures.append("FleetDegraded does not carry the answer")
+    out["typed_failures"] = typed
+    health = fleet.health()
+    out["health"] = health
+    if health["last_degraded"] is None or \
+            not health["degraded_predictions"] > 0:
+        failures.append(f"health() reports no degraded prediction: "
+                        f"{health}")
+
+    # -- one degraded tile against the same port in float64 ---------------
+    lt64 = pack(*TRUE_THETA, dtype=torch.float64, device=Xp.device)
+    f64 = GPFleet(cfg, device=DEVICE).fit(Xp.double(), yp.double(),
+                                          log_theta0=lt64, train=False)
+    f32 = fleet.predict(Xt, method="rbcm", fault_plan=plans["drop0"],
+                        allow_degraded=True)
+    ref = f64.predict(Xt.double(), method="rbcm", fault_plan=plans["drop0"],
+                      allow_degraded=True)
+    errs = {"mean": float((f32[0].double() - ref[0]).abs().max()),
+            "var": float((f32[1].double() - ref[1]).abs().max())}
+    out["rbcm_drop0_f32_vs_f64"] = errs
+    if not (errs["mean"] <= F32_MEAN_TOL and errs["var"] <= F32_VAR_TOL):
+        failures.append(f"degraded float32 tile vs float64: {errs}")
+    del f64, ref
+
+    # -- the M = 10 fleet: Dropout(0) diverges or converges, never worse --
+    X, y = Xp.reshape(-1, 2), yp.reshape(-1)
+    Xp10, yp10 = stripe_partition(X, y, 10)
+    lt = pack(*TRUE_THETA, dtype=torch.float32, device=Xp.device)
+    f10 = GPFleet(FleetConfig(num_agents=10, stream_mean=True),
+                  device=DEVICE).fit(Xp10, yp10, log_theta0=lt, train=False)
+    f10.engine.degraded_tol = eng.degraded_tol
+    m10 = {"exact_dac_residual": float(f10.predict(Xt)[2]["dac_residual"]),
+           "degraded_tol": f10.engine.degraded_tol}
+    try:
+        _, _, info = f10.predict(Xt, fault_plan=plans["drop0"],
+                                 allow_degraded=True)
+        m10["outcome"] = "served"
+        m10["dac_residual"] = float(info["dac_residual"])
+        if not m10["dac_residual"] <= eng.degraded_tol:
+            failures.append(f"M=10: a degraded result above degraded_tol "
+                            f"was returned ({m10})")
+    except ConsensusDiverged as e:
+        m10["outcome"] = "ConsensusDiverged"
+        m10["message"] = str(e)[:200]
+    out["m10_rbcm_drop0"] = m10
+    del f10
+    torch.cuda.empty_cache()
+    return out, failures
+
+
+def _ragged(rng, X, n_requests, lo=1, hi=FRONTDOOR_MAX_ROWS):
+    """n_requests host requests of lo..hi rows cut in turn from X."""
+    sizes = rng.integers(lo, hi + 1, size=n_requests)
+    out, off = [], 0
+    for n in sizes:
+        if off + n > X.shape[0]:
+            off = 0
+        out.append(X[off:off + n])
+        off += n
+    return out
+
+
+def launcher_summary(text) -> dict:
+    """The counts of `serve_gp --scheduler`'s summary line and each
+    tenant's q/s, from its printed output ({} without a summary line)."""
+    m = re.search(r"-> (\d+) submitted: (\d+) served / (\d+) "
+                  r"past-deadline / (\d+) rejected / (\d+) failed / "
+                  r"(\d+) hung", text)
+    if m is None:
+        return {}
+    keys = ("submitted", "served", "past_deadline", "rejected", "failed",
+            "hung")
+    return {**dict(zip(keys, map(int, m.groups()))),
+            "queries_per_s": [int(q) for q in
+                              re.findall(r"\((\d+) q/s\)", text)]}
+
+
+def launcher_served_all(summary) -> bool:
+    """Every request the launcher admitted was served (none failed, hung
+    or past its deadline), some were, and every tenant's rate is above 0."""
+    return bool(summary) and summary["served"] > 0 \
+        and summary["served"] == summary["submitted"] - summary["rejected"] \
+        and bool(summary["queries_per_s"]) \
+        and min(summary["queries_per_s"]) > 0
+
+
+def _tenant_report(st, seconds):
+    p50, p95, p99 = st.latency_ms(50, 95, 99)
+    return {"requests": st.requests, "queries": st.queries,
+            "queries_per_s": st.queries / seconds, "batches": st.batches,
+            "p50_ms": p50, "p95_ms": p95, "p99_ms": p99,
+            "padding_fraction": st.padding_fraction,
+            "engine_seconds": st.engine_seconds, "rejected": st.rejected,
+            "retried": st.retried, "stalled": st.stalled}
+
+
+def phase_frontdoor(ctx):
+    """The serving front door on the paper fleet (see the module
+    docstring)."""
+    import io
+    import urllib.request
+    import numpy as np
+    import torch
+    from repro_torch.chaos import Dropout, FaultPlan
+    from repro_torch.core.gp import pack
+    from repro_torch.fleet import GPFleet
+    from repro_torch.kernels import rbf_matvec as K
+    from repro_torch.launch import serve_gp
+    from repro_torch.launch.scheduler import (SchedulerStalled,
+                                              ServingScheduler, slot_ladder)
+    from repro_torch.obs import parse_prometheus_text, start_metrics_server
+    fleets = {"rbcm": _serve_fleet(ctx)}
+    Xp, yp, Xq, _ = paper_data(ctx)
+    lt = pack(*TRUE_THETA, dtype=torch.float32, device=Xp.device)
+    fleets["npae"] = GPFleet(fleets["rbcm"].config.replace(method="npae"),
+                             device=DEVICE).fit(Xp, yp, log_theta0=lt,
+                                                train=False)
+    X = Xq.cpu().numpy()
+    rng = np.random.default_rng(ctx["seed"] + 22)
+    out = {}
+    failures = []
+    slots = {"rbcm": slot_ladder(*fleets["rbcm"].slot_geometry()),
+             "npae": slot_ladder(*fleets["npae"].slot_geometry())}
+    out["slots"] = slots
+    if slots != {"rbcm": (256, 512, 1024), "npae": (256,)}:
+        failures.append(f"slot ladders {slots}")
+    launches = 0
+
+    def register(sched, suffix="", **kw):
+        for name, fl in fleets.items():
+            sched.add_fleet(name + suffix, fl, method=name, **kw)
+        return {name + suffix: fl.jit_cache_misses
+                for name, fl in fleets.items()}
+
+    def flat(misses0, stage):
+        for name, fl in fleets.items():
+            for t, m in misses0.items():
+                if t.startswith(name) and fl.jit_cache_misses != m:
+                    failures.append(f"{stage}: tenant {t} met "
+                                    f"{fl.jit_cache_misses - m} new "
+                                    f"geometries after warm-up")
+
+    # -- 1. ragged requests against GPFleet.predict, metrics port ---------
+    server = start_metrics_server(0)
+    try:
+        K.reset_launches()
+        with ServingScheduler(max_wait_ms=2.0) as sched:
+            misses0 = register(sched, queue_depth=1 << 16)
+            warm_tiles = sum(slots["rbcm"]) // BATCH
+            reqs = [(name, r) for name in fleets
+                    for r in _ragged(rng, X, FRONTDOOR_RAGGED)]
+            t0 = time.perf_counter()
+            futs = [sched.add_request(r, tenant=name) for name, r in reqs]
+            answers = [f.result(timeout=300) for f in futs]
+            seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        got = K.launches
+        launches += got
+        st = sched.tenant_stats
+        want = warm_tiles + (st["rbcm"].queries
+                             + st["rbcm"].padded_queries) // BATCH
+        if got != want:
+            failures.append(f"ragged: rbf_matvec launched {got} times for "
+                            f"{want} rbcm tiles")
+        flat(misses0, "ragged")
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/metrics", timeout=30) as r:
+            scraped = parse_prometheus_text(r.read().decode())
+        for name in fleets:
+            seen = {labels["tenant"]: v for labels, v in
+                    scraped.get("gp_requests_total", [])
+                    if "tenant" in labels}
+            if seen.get(name) != st[name].requests:
+                failures.append(f"/metrics gp_requests_total{{tenant="
+                                f"{name}}} = {seen.get(name)}, "
+                                f"{st[name].requests} served")
+        out["metrics_port_series"] = len(scraped)
+    finally:
+        server.stop()
+    err = {"mean": 0.0, "var": 0.0}
+    for (name, r), (m, v) in zip(reqs, answers):
+        want_m, want_v, _ = fleets[name].predict(r)
+        err["mean"] = max(err["mean"], float(np.abs(
+            m - want_m.cpu().numpy()).max()))
+        err["var"] = max(err["var"], float(np.abs(
+            v - want_v.cpu().numpy()).max()))
+    out["ragged"] = {"requests": len(reqs),
+                     "rows": int(sum(r.shape[0] for _, r in reqs)),
+                     "max_abs_err_vs_predict": err,
+                     "rbf_matvec_launches": got,
+                     "seconds": seconds,
+                     "tenants": {n: _tenant_report(st[n], seconds)
+                                 for n in fleets}}
+    if not (err["mean"] <= F32_MEAN_TOL and err["var"] <= F32_VAR_TOL):
+        failures.append(f"ragged answers vs GPFleet.predict: {err}")
+
+    # -- 2. open-loop Poisson load ----------------------------------------
+    K.reset_launches()
+    events = serve_gp.poisson_arrivals(
+        rng, {n + "_open": rate for n, rate in FRONTDOOR_RATES.items()},
+        FRONTDOOR_SECONDS)
+    with ServingScheduler(max_wait_ms=2.0) as sched:
+        misses0 = register(sched, "_open", admission="reject",
+                           queue_depth=FRONTDOOR_QUEUE_ROWS)
+        t0 = time.perf_counter()
+        futs, rejected = serve_gp.open_loop(
+            sched, events, lambda name: _ragged(rng, X, 1)[0])
+        for f in futs:
+            f.result(timeout=300)
+        seconds = time.perf_counter() - t0
+    launches += K.launches
+    flat(misses0, "open loop")
+    out["open_loop"] = {
+        "seconds": seconds, "rates_per_s": FRONTDOOR_RATES,
+        "rejected": rejected,
+        "tenants": {n: _tenant_report(sched.tenant_stats[n + "_open"],
+                                      seconds) for n in fleets}}
+
+    # -- 3. closed-loop burst: everything submitted at once ---------------
+    K.reset_launches()
+    burst = _ragged(rng, X, FRONTDOOR_BURST)
+    with ServingScheduler(max_wait_ms=2.0) as sched:
+        misses0 = register(sched, "_burst", queue_depth=1 << 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs = [sched.add_request(r, tenant="rbcm_burst") for r in burst]
+        for f in futs:
+            f.result(timeout=300)
+        seconds = time.perf_counter() - t0
+    launches += K.launches
+    flat(misses0, "burst")
+    rows = sum(r.shape[0] for r in burst)
+    out["burst"] = {"requests": len(burst), "rows": rows,
+                    "seconds": seconds, "peak_queries_per_s": rows / seconds,
+                    "rbcm": _tenant_report(
+                        sched.tenant_stats["rbcm_burst"], seconds)}
+
+    # -- 4. serving faults -------------------------------------------------
+    K.reset_launches()
+    fl = fleets["rbcm"]
+    fail_reqs = _ragged(rng, X, FRONTDOOR_FAULT_REQUESTS, hi=BATCH)
+    with ServingScheduler(max_wait_ms=2.0) as sched:
+        t_fail = sched.add_fleet("fail", fl, method="rbcm",
+                                 fault_plan=FaultPlan(fail_every=5),
+                                 retry_backoff_ms=0.1)
+        misses0 = fl.jit_cache_misses
+        # one request a dispatch: call k is request k
+        fail_answers = [sched.add_request(r, tenant="fail").result(
+            timeout=300) for r in fail_reqs]
+    new_geometries = {"fail": fl.jit_cache_misses - misses0}
+
+    stalled, spurious, ok_after_stall, quarantined = [], [], 0, 0
+    with ServingScheduler(max_wait_ms=2.0,
+                          stall_timeout_ms=FRONTDOOR_STALL_MS) as sched:
+        t_slow = sched.add_fleet("slow", fl, method="rbcm", max_slot=BATCH,
+                                 fault_plan=FaultPlan(
+                                     straggle_every=7,
+                                     straggle_ms=FRONTDOOR_STRAGGLE_MS))
+        misses0 = fl.jit_cache_misses
+        for k, r in enumerate(_ragged(rng, X, FRONTDOOR_FAULT_REQUESTS,
+                                      hi=BATCH), 1):
+            while True:
+                try:
+                    fut = sched.add_request(r, tenant="slow")
+                    break
+                except SchedulerStalled:
+                    quarantined += 1    # the straggler has not returned yet
+                    time.sleep(0.005)
+            try:
+                fut.result(timeout=300)
+                if stalled and stalled[-1] < k:
+                    ok_after_stall += 1
+            except SchedulerStalled:
+                (stalled if k % 7 == 0 else spurious).append(k)
+    new_geometries["slow"] = fl.jit_cache_misses - misses0
+    straggled = [k for k in range(1, FRONTDOOR_FAULT_REQUESTS + 1)
+                 if k % 7 == 0]
+    out["straggle_every_7"] = {
+        "requests": FRONTDOOR_FAULT_REQUESTS,
+        "straggle_ms": FRONTDOOR_STRAGGLE_MS,
+        "stall_timeout_ms": FRONTDOOR_STALL_MS, "straggled": straggled,
+        "failed_stalled": stalled, "spurious_stalls": spurious,
+        "watchdog_stalls": t_slow.stats.stalled,
+        "rejected_while_quarantined": quarantined,
+        "served_after_a_stall": ok_after_stall}
+    if stalled != straggled or not ok_after_stall:
+        failures.append(f"straggle_every=7: {out['straggle_every_7']}")
+
+    plan = FaultPlan(dropouts=(Dropout(0),))
+    degraded0 = fl.health()["degraded_predictions"]
+    reqs = _ragged(rng, X, FRONTDOOR_FAULT_REQUESTS)
+    with _degraded_tol(fl.engine, CHAOS_DEGRADED_TOL), \
+            ServingScheduler(max_wait_ms=2.0) as sched:
+        t_deg = sched.add_fleet("degraded", fl, method="rbcm",
+                                fault_plan=plan)
+        misses0 = fl.jit_cache_misses
+        futs = [sched.add_request(r, tenant="degraded") for r in reqs]
+        answers = [f.result(timeout=300) for f in futs]
+    torch.cuda.synchronize()
+    new_geometries["degraded"] = fl.jit_cache_misses - misses0
+    # the faults' serving counted; what follows are the comparisons
+    launches += K.launches
+    dispatched = len(slots["rbcm"]) + t_deg.stats.batches
+    counted = fl.health()["degraded_predictions"] - degraded0
+    injected = t_fail.predict_fn.calls["n"] // 5
+    ferr = max(float(np.abs(m - fl.predict(r)[0].cpu().numpy()).max())
+               for r, (m, _) in zip(fail_reqs, fail_answers))
+    out["fail_every_5"] = {"requests": len(fail_reqs),
+                           "dispatch_calls": t_fail.predict_fn.calls["n"],
+                           "injected": injected,
+                           "retried": t_fail.stats.retried,
+                           "max_abs_err_vs_predict": ferr}
+    if t_fail.stats.retried != injected or not ferr <= F32_MEAN_TOL:
+        failures.append(f"fail_every=5: {out['fail_every_5']}")
+    with _degraded_tol(fl.engine, CHAOS_DEGRADED_TOL):
+        derr = max(float(np.abs(m - fl.predict(
+            r, fault_plan=plan, allow_degraded=True)[0].cpu().numpy()).max())
+            for r, (m, _) in zip(reqs, answers))
+    out["dropout_0"] = {"requests": len(reqs), "dispatches": dispatched,
+                        "degraded_counted": counted,
+                        "last_degraded": fl.health()["last_degraded"],
+                        "max_abs_err_vs_degraded_predict": derr}
+    if counted != dispatched or not derr <= F32_MEAN_TOL:
+        failures.append(f"Dropout(0) tenant: {out['dropout_0']}")
+    out["fault_tenants_new_geometries"] = new_geometries
+    if any(new_geometries.values()):
+        failures.append(f"fault tenants met new geometries after warm-up: "
+                        f"{new_geometries}")
+
+    # -- 5. the launcher in-process ---------------------------------------
+    buf = io.StringIO()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve_gp.main(FRONTDOOR_LAUNCHER_ARGS)
+    torch.cuda.synchronize()
+    launches += K.launches
+    text = buf.getvalue()
+    summary = launcher_summary(text)
+    out["serve_gp"] = {"args": FRONTDOOR_LAUNCHER_ARGS,
+                       "seconds": time.perf_counter() - t0, **summary,
+                       "output": text.strip().splitlines()[-4:]}
+    if not launcher_served_all(summary):
+        failures.append(f"serve_gp --scheduler did not serve every "
+                        f"admitted request: {text}")
+    ctx["launches_by_path"]["rbf_matvec"]["frontdoor"] = launches
+    out["rbf_matvec_launches"] = launches
+    del fleets["npae"]
+    torch.cuda.empty_cache()
+    if failures:
+        emit({"phase": "frontdoor", "report_of_a_failed_phase": True, **out})
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def plain_attention(q, k, v, causal=True, window=None, scale=None):
     """ops.flash_attention's signature with the kernel's plain version in
     its place, on whatever device the inputs lie: the attention hook that
@@ -2966,6 +3698,7 @@ def main(argv=None) -> int:
               ("fleets", phase_fleets), ("methods", phase_methods),
               ("train", phase_train), ("online", phase_online),
               ("sparse", phase_sparse), ("persist", phase_persist),
+              ("chaos", phase_chaos), ("frontdoor", phase_frontdoor),
               ("lm", phase_lm)]
     if args.profile:
         phases.append(("profile", phase_profile))

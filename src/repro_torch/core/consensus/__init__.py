@@ -1,5 +1,7 @@
 from .dac import dac, dac_residual, dac_time_varying, dac_until
 from .dale import dale
+from .degraded import (ConsensusDiverged, dac_masked, dac_masked_sums,
+                       masked_perrons, perron_sums)
 from .flooding import flood
 from .graph import (attach_agent, complete_graph, connected_components,
                     cycle_graph, degree_matrix, diameter, is_connected,
@@ -14,4 +16,5 @@ __all__ = ["path_graph", "cycle_graph", "complete_graph",
            "connected_components", "attach_agent", "remove_agent",
            "dac", "dac_residual", "dac_until", "dac_time_varying",
            "jor", "power_method", "extreme_eigs", "optimal_omega",
-           "dale", "flood"]
+           "dale", "flood", "ConsensusDiverged", "masked_perrons",
+           "dac_masked", "perron_sums", "dac_masked_sums"]

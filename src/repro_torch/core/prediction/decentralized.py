@@ -23,8 +23,12 @@ info. Each exists at two levels, as in the reference:
   the local quantities each time.
 The per-query NPAE systems are solved for every query of a tile at once
 (batched JOR, PM and DALE), the mean and k_A right-hand sides stacked.
-The reference's degraded-mode `dac_fn` hooks are not ported yet (ROADMAP
-queue A item 8).
+
+The cores take the reference's degraded-mode hooks: `dac_fn` (the
+signature of `_dac_sums`) swaps the consensus readout for
+`consensus.degraded`'s masked one, and dec_nn_npae_from_terms' `readout`
+restricts the averaged solution copies to the surviving component. None
+keeps the exact path.
 """
 from __future__ import annotations
 
@@ -104,52 +108,59 @@ def _mask_floats(mask, like):
 
 
 def _poe_family_from_moments(mu, var, prior_var, A, iters, beta_mode: str,
-                             bcm_correction: bool, mask=None):
+                             bcm_correction: bool, mask=None, dac_fn=None):
     m = _mask_floats(mask, mu)
     beta = _poe_beta(var, prior_var, m, m.sum(0), beta_mode)
     w0 = _poe_summands(beta, mu, var)                     # (M, Nt, 3)
-    sums, res = _dac_sums(w0.reshape(w0.shape[0], -1), A, iters)
+    sums_fn = _dac_sums if dac_fn is None else dac_fn
+    sums, res = sums_fn(w0.reshape(w0.shape[0], -1), A, iters)
     sums = sums.reshape(mu.shape[1], 3)
     mean, v = _poe_posterior(sums[:, 0], sums[:, 1], sums[:, 2], prior_var,
                              bcm_correction)
     return mean, v, {"dac_residuals": res}
 
 
-def dec_poe_from_moments(mu, var, prior_var, A, iters=200, mask=None):
+def dec_poe_from_moments(mu, var, prior_var, A, iters=200, mask=None,
+                         dac_fn=None):
     """DEC-PoE (Alg. 5) on precomputed local moments."""
     return _poe_family_from_moments(mu, var, prior_var, A, iters, "one",
-                                    False, mask)
+                                    False, mask, dac_fn)
 
 
-def dec_gpoe_from_moments(mu, var, prior_var, A, iters=200, mask=None):
+def dec_gpoe_from_moments(mu, var, prior_var, A, iters=200, mask=None,
+                          dac_fn=None):
     """DEC-gPoE (Alg. 6) on precomputed local moments."""
     return _poe_family_from_moments(mu, var, prior_var, A, iters, "avg",
-                                    False, mask)
+                                    False, mask, dac_fn)
 
 
-def dec_bcm_from_moments(mu, var, prior_var, A, iters=200, mask=None):
+def dec_bcm_from_moments(mu, var, prior_var, A, iters=200, mask=None,
+                         dac_fn=None):
     """DEC-BCM (Alg. 7) on precomputed local moments."""
     return _poe_family_from_moments(mu, var, prior_var, A, iters, "one",
-                                    True, mask)
+                                    True, mask, dac_fn)
 
 
-def dec_rbcm_from_moments(mu, var, prior_var, A, iters=200, mask=None):
+def dec_rbcm_from_moments(mu, var, prior_var, A, iters=200, mask=None,
+                          dac_fn=None):
     """DEC-rBCM (Alg. 8) on precomputed local moments."""
     return _poe_family_from_moments(mu, var, prior_var, A, iters, "entropy",
-                                    True, mask)
+                                    True, mask, dac_fn)
 
 
 def dec_grbcm_from_moments(mu_aug, var_aug, mu_c, var_c, A, iters=200,
-                           mask=None):
+                           mask=None, dac_fn=None):
     """DEC-grBCM (Alg. 9) core: three DACs on augmented-expert quantities.
 
     mu_aug/var_aug (M, Nt) are the AUGMENTED experts' moments; mu_c/var_c
-    (Nt,) the communication expert's."""
+    (Nt,) the communication expert's. `dac_fn` (the signature of
+    `_dac_sums`) swaps the consensus readout: the degraded-mode hook."""
     m = _mask_floats(mask, mu_aug)
     index = torch.arange(mu_aug.shape[0], device=mu_aug.device)
     beta = _grbcm_beta(var_aug, var_c, m, index)
     w0 = _poe_summands(beta, mu_aug, var_aug)
-    sums, res = _dac_sums(w0.reshape(w0.shape[0], -1), A, iters)
+    sums_fn = _dac_sums if dac_fn is None else dac_fn
+    sums, res = sums_fn(w0.reshape(w0.shape[0], -1), A, iters)
     sums = sums.reshape(mu_aug.shape[1], 3)
     mean, v = _grbcm_posterior(sums[:, 0], sums[:, 1], sums[:, 2], mu_c,
                                var_c)
@@ -207,10 +218,12 @@ def _masked_system(CA, mkT):
         + eye[None] * (1.0 - mkT)[:, None, :]
 
 
-def _npae_consensus(mu, kA, CA, prior_var, A, solver, dac_iters, mask=None):
+def _npae_consensus(mu, kA, CA, prior_var, A, solver, dac_iters, mask=None,
+                    dac_fn=None):
     """Shared scaffold: per-query linear solves, then DAC to assemble the
     dot products. `mask` (M, Nt) 0/1 excludes agents from the system
-    (decoupled rows, zeroed payloads)."""
+    (decoupled rows, zeroed payloads); `dac_fn` swaps the consensus
+    readout (`_dac_sums` signature). Both are the degraded-mode hooks."""
     if mask is not None:
         mk = mask.to(mu.dtype)
         CA = _masked_system(CA, mk.T)
@@ -219,7 +232,8 @@ def _npae_consensus(mu, kA, CA, prior_var, A, solver, dac_iters, mask=None):
     q, solver_info = solver(CA, torch.stack([mu.T, kA.T], -1))  # (Nt, M, 2)
     # each agent holds w_i = [k_A]_i * q_i; DAC recovers the dot products
     w0 = kA[..., None] * q.transpose(0, 1)                 # (M, Nt, 2)
-    sums, res = _dac_sums(w0.reshape(w0.shape[0], -1), A, dac_iters)
+    sums_fn = _dac_sums if dac_fn is None else dac_fn
+    sums, res = sums_fn(w0.reshape(w0.shape[0], -1), A, dac_iters)
     sums = sums.reshape(mu.shape[1], 2)
     mean = sums[:, 0]                                      # k_A^T C_A^-1 mu (20)
     var = torch.clamp(prior_var - sums[:, 1], min=1e-12)   # (21)
@@ -247,13 +261,14 @@ def _jor_info(res, om, with_residuals: bool):
 
 def dec_npae_from_terms(mu, kA, CA, prior_var, A, jor_iters=500,
                         dac_iters=200, omega=None, jitter=1e-6,
-                        with_residuals=False, mask=None):
+                        with_residuals=False, mask=None, dac_fn=None):
     """DEC-NPAE (Alg. 10) core: JOR (strongly complete) + DAC on
     precomputed NPAE terms. Lemma 2 default omega = 2/M * 0.999.
 
     `with_residuals=True` adds the per-round JOR residual trajectory
     "jor_residuals" (jor_iters,), the worst query per round, beside the
-    final "jor_residual"."""
+    final "jor_residual". `mask`/`dac_fn` are the degraded-mode hooks
+    (see `_npae_consensus`)."""
     M = mu.shape[0]
     om = (2.0 / M) * 0.999 if omega is None else omega
 
@@ -262,14 +277,15 @@ def dec_npae_from_terms(mu, kA, CA, prior_var, A, jor_iters=500,
         return q, _jor_info(res, om, with_residuals)
 
     return _npae_consensus(mu, kA, CA, prior_var, A, solver, dac_iters,
-                           mask=mask)
+                           mask=mask, dac_fn=dac_fn)
 
 
 def dec_npae_star_from_terms(mu, kA, CA, prior_var, A, jor_iters=500,
                              dac_iters=200, pm_iters=100, jitter=1e-6,
-                             with_residuals=False, mask=None):
+                             with_residuals=False, mask=None, dac_fn=None):
     """DEC-NPAE* (Alg. 12) core: PM/IPM estimate omega* = 2/(lmax+lmin)
-    per query, then JOR with the optimal relaxation (Lemma 3)."""
+    per query, then JOR with the optimal relaxation (Lemma 3).
+    `mask`/`dac_fn` are the degraded-mode hooks."""
 
     def solver(CA, b):
         H = _rel_jitter(CA, jitter)
@@ -278,7 +294,7 @@ def dec_npae_star_from_terms(mu, kA, CA, prior_var, A, jor_iters=500,
         return q, _jor_info(res, oms, with_residuals)
 
     return _npae_consensus(mu, kA, CA, prior_var, A, solver, dac_iters,
-                           mask=mask)
+                           mask=mask, dac_fn=dac_fn)
 
 
 def dec_npae(log_theta, Xp, yp, Xs, A, jor_iters=500, dac_iters=200,

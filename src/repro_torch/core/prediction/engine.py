@@ -20,17 +20,29 @@ Counterpart of `repro.core.prediction.engine` (replicated mode):
                      replaces the served factors of a streaming fleet
                      (core.online, dense only) in place; `rewire` applies
                      a membership change (new adjacency, new M).
+                     `predict(..., fault_plan=)` serves a chaos plan's
+                     consensus faults over the surviving subgraph
+                     (consensus.degraded), flagged degraded or raising
+                     ConsensusDiverged; `warm_slots` serves one batch of
+                     every slot geometry a serving scheduler will send.
 
 PyTorch runs eagerly, so nothing is compiled per request; the reference's
 trace counter (`gp_jit_traces_total` in the default `obs` registry, and
 `jit_cache_misses`) counts here what the reference's traces count: the
 distinct (method, query geometry) pairs served. `set_diagnostics(True)`
 adds the per-round DAC (and JOR) residual trajectories to `predict`'s
-info without changing a prediction. The degraded-mode fault plans and
-their counters are not ported yet (ROADMAP queue A item 8).
+info without changing a prediction. A degraded dispatch is a geometry of
+its own, as the reference's degraded program is a trace of its own, and
+every plan of one structure shares it.
+
+The engine may be called from several threads at once (a serving
+scheduler's worker, and after a watchdog stall a second worker while the
+wedged call still runs): its caches (the served geometries, the per-plan
+fault arrays) are mutated only under the engine's lock.
 """
 from __future__ import annotations
 
+import threading
 from functools import partial
 from typing import Mapping, NamedTuple
 
@@ -39,6 +51,9 @@ import torch
 
 from ...device import resolve_device
 from ...obs import default_registry
+from ..consensus.degraded import (ConsensusDiverged, masked_perrons,
+                                  perron_sums)
+from ..consensus.graph import connected_components
 from ..gp.kernel import unpack
 from . import aggregation as agg
 from .cbnn import _mask_from_scores, cbnn_mask_cached
@@ -182,7 +197,8 @@ class PredictionEngine:
                  npae_jitter: float = 1e-6,
                  fitted_aug: FittedExperts | SparseExperts | None = None,
                  fitted_comm: FittedExperts | SparseExperts | None = None,
-                 stream_mean: bool = False, device=None):
+                 stream_mean: bool = False, degraded_tol: float = 1e-2,
+                 device=None):
         self.device = resolve_device(device)
         self.fitted = fitted.to(self.device)
         self.fitted_aug = None if fitted_aug is None \
@@ -201,12 +217,30 @@ class PredictionEngine:
         self.eta_nn = float(eta_nn)
         self.npae_jitter = float(npae_jitter)
         self.stream_mean = bool(stream_mean)
+        self.degraded_tol = float(degraded_tol)
         self.diagnostics = False
-        self._served: set = set()     # (method, query shape, dtype) pairs
+        # guards _served, _trace_count and _chaos_cache (see the module
+        # docstring): held only while a cache is read and mutated
+        self._lock = threading.Lock()
+        self._served: set = set()     # (method, shape, dtype, mode) keys
         self._trace_count = 0
-        self._traces_total = default_registry().counter(
+        self._chaos_cache: dict = {}  # FaultPlan -> (device arrays, census)
+        reg = default_registry()
+        self._traces_total = reg.counter(
             "gp_jit_traces_total", "engine traces (compiled programs), by "
             "engine and method")
+        self._degraded_total = reg.counter(
+            "gp_degraded_predictions_total", "predictions served in degraded "
+            "mode (dropped agents / partitions / scrubbed payloads)")
+        self._diverged_total = reg.counter(
+            "gp_consensus_diverged_total", "predictions that raised "
+            "ConsensusDiverged (residual or finiteness guard)")
+        self._scrubbed_gauge = reg.gauge(
+            "gp_scrubbed_payloads", "agents with non-finite consensus "
+            "payloads scrubbed in the last degraded prediction")
+        self._alive_gauge = reg.gauge(
+            "gp_alive_agents", "agents alive at the last degraded "
+            "prediction's readout")
 
     def _queries(self, Xs):
         """Queries as a tensor on the engine's device in the experts'
@@ -240,26 +274,55 @@ class PredictionEngine:
         return npae_terms_cached(f.log_theta, f.Xp, f.L, f.alpha, Xq,
                                  Kcross=f.Kcross)
 
-    def _tile(self, method: str, Xq):
+    def _tile(self, method: str, Xq, chaos=None):
         f, fa, fc = self.fitted, self.fitted_aug, self.fitted_comm
         A, pv = self.A, f.prior_var
         nn = method.startswith("nn_")
         base = method[3:] if nn else method
         red = {}
+        dac_fn = None
+
+        def degrade(mu, var, m):
+            """Chaos payload stage: inject the plan's NaN corruption, then
+            SCRUB: non-finite per-agent payloads are zeroed, excluded from
+            the participation mask and counted, so corruption never reaches
+            the aggregation arithmetic silently."""
+            mu = torch.where(chaos["corrupt"][:, None], torch.nan, mu)
+            ok = torch.isfinite(mu) & torch.isfinite(var)
+            eligible = chaos["payload"][:, None] > 0
+            red["scrubbed"] = (~ok & eligible).any(1).sum().to(mu.dtype)
+            m2 = chaos["payload"][:, None] * ok.to(mu.dtype)
+            if m is not None:
+                m2 = m2 * torch.broadcast_to(m, mu.shape).to(mu.dtype)
+            return (torch.where(ok, mu, torch.zeros_like(mu)),
+                    torch.where(ok, var, pv.expand_as(var)), m2)
+
+        if chaos is not None:
+            def dac_fn(w0, A_, iters):
+                return perron_sums(w0, chaos["perrons"], chaos["alive_seq"],
+                                   chaos["readout"], chaos["n_relay"])
+
         if method == "nn_npae":
             # the CBNN scores (eq. 39) are the NPAE terms' k_A
             mu, kA, CA = self._terms(f, Xq)
             mask = _mask_from_scores(kA, self.eta_nn)
+            A_dale, readout = A, None
+            if chaos is not None:
+                mu, _, mask = degrade(mu, torch.zeros_like(mu) + pv, mask)
+                A_dale, readout = chaos["A_live"], chaos["readout"]
             mean, v, info = dec_nn_npae_from_terms(
-                mask, mu, kA, CA, pv, A, dale_iters=self.dale_iters,
-                jitter=self.npae_jitter)
+                mask, mu, kA, CA, pv, A_dale, dale_iters=self.dale_iters,
+                jitter=self.npae_jitter, readout=readout)
             red["dale_residual"] = info["dale_residual"]
             return {"mean": mean, "var": v, "mask_t": mask.T}, red
         mask = self._mask(f, Xq) if nn else None
         if base in _DAC_CORES:
             mu, var = self._moments(f, Xq)
+            if chaos is not None:
+                mu, var, mask = degrade(mu, var, mask)
             mean, v, info = _DAC_CORES[base](mu, var, pv, A,
-                                             iters=self.dac_iters, mask=mask)
+                                             iters=self.dac_iters, mask=mask,
+                                             dac_fn=dac_fn)
             red["dac_residual"] = info["dac_residuals"][-1]
             if self.diagnostics:
                 # the full per-round trajectory, max-reduced elementwise
@@ -271,21 +334,28 @@ class PredictionEngine:
             if base == "cen_grbcm":
                 mean, v = agg.grbcm(mu_a, var_a, mu_c[0], var_c[0])
             else:
+                if chaos is not None:
+                    # the communication expert is a serving-host dataset,
+                    # not a fleet member: only the augmented experts fail
+                    mu_a, var_a, mask = degrade(mu_a, var_a, mask)
                 mean, v, info = dec_grbcm_from_moments(
                     mu_a, var_a, mu_c[0], var_c[0], A, iters=self.dac_iters,
-                    mask=mask)
+                    mask=mask, dac_fn=dac_fn)
                 red["dac_residual"] = info["dac_residuals"][-1]
                 if self.diagnostics:
                     red["dac_residuals"] = info["dac_residuals"]
         elif method in ("npae", "npae_star"):
             mu, kA, CA = self._terms(f, Xq)
+            if chaos is not None:
+                mu, _, mask = degrade(mu, torch.zeros_like(mu) + pv, mask)
             core = (dec_npae_from_terms if method == "npae"
                     else partial(dec_npae_star_from_terms,
                                  pm_iters=self.pm_iters))
             mean, v, info = core(mu, kA, CA, pv, A, jor_iters=self.jor_iters,
                                  dac_iters=self.dac_iters,
                                  jitter=self.npae_jitter,
-                                 with_residuals=self.diagnostics)
+                                 with_residuals=self.diagnostics,
+                                 mask=mask, dac_fn=dac_fn)
             red["dac_residual"] = info["dac_residuals"][-1]
             red["jor_residual"] = info["jor_residual"]
             if self.diagnostics:
@@ -310,13 +380,103 @@ class PredictionEngine:
             perq["mask_t"] = mask.T                       # query axis leads
         return perq, red
 
-    def predict(self, method: str, Xs):
+    def _chaos_arrays(self, plan):
+        """The fault arrays and the degradation census of a consensus-
+        faulty FaultPlan: built on the host and moved to the device once,
+        cached per plan (under the engine's lock).
+
+        readout = the largest connected component of live agents at the
+        final round (ties -> the lowest label); payload = its members that
+        were ALSO alive at round 0 (only they contribute local models);
+        perrons = the per-round masked update matrices (with the plan's
+        edge loss). Every plan of one structure dispatches to one degraded
+        geometry, as in the reference one program serves them all."""
+        with self._lock:
+            cached = self._chaos_cache.get(plan)
+            if cached is not None:
+                return cached
+            M = self.fitted.num_agents
+            dt, dev = self.fitted.Xp.dtype, self.device
+            alive = plan.alive_schedule(M, self.dac_iters)   # (iters, M)
+            final = alive[-1] > 0.0
+            if not final.any():
+                raise ConsensusDiverged(
+                    "fault plan drops every agent before readout")
+            A_host = self.A.cpu().numpy()
+            labels = connected_components(A_host, alive=final)
+            uniq, counts = np.unique(labels[final], return_counts=True)
+            comp = final & (labels == uniq[np.argmax(counts)])
+            payload = (alive[0] > 0.0) & comp
+            if not payload.any():
+                raise ConsensusDiverged(
+                    "no surviving agent holds a round-0 payload")
+            # live-subgraph adjacency for DALE (nn_npae), with self-loops
+            # on EVERY zero-degree node (dead ones too), as the reference
+            # builds it
+            A_live = A_host * np.outer(final, final)
+            iso = np.flatnonzero(A_live.sum(axis=1) == 0)
+            A_live[iso, iso] = 1.0
+            edge = plan.edge_schedule(M, self.dac_iters)
+            alive_t = torch.tensor(alive, dtype=dt, device=dev)
+            chaos = {
+                "alive_seq": alive_t,
+                "readout": torch.tensor(comp, dtype=dt, device=dev),
+                "payload": torch.tensor(payload, dtype=dt, device=dev),
+                "corrupt": torch.tensor(plan.corrupt_mask(M), device=dev),
+                "n_relay": torch.tensor(float(payload.sum()), dtype=dt,
+                                        device=dev),
+                "A_live": torch.tensor(A_live, device=dev),
+                "perrons": masked_perrons(
+                    self.A, alive_t,
+                    edge_seq=None if edge is None
+                    else torch.tensor(edge, device=dev)).to(dt),
+                # the reference's degraded trace differs by whether the
+                # plan carries edge masks: so does the geometry here
+                "mode": "degraded" if edge is None else "degraded+edges",
+            }
+            meta = {"degraded": True,
+                    "alive_agents": int(final.sum()),
+                    "excluded_agents": int(M - payload.sum()),
+                    "n_components": int(uniq.size)}
+            self._chaos_cache[plan] = (chaos, meta)
+            return chaos, meta
+
+    def warm_slots(self, method: str, slots, *, input_dim: int | None = None,
+                   dtype=None, fault_plan=None):
+        """Serve one zero batch of every query-batch geometry in `slots`
+        so a serving scheduler packing requests into those slots meets no
+        new geometry on the request path (the reference pre-traces them).
+        Pass the serving `fault_plan` to also warm the degraded geometry
+        it will dispatch to."""
+        D = self.fitted.Xp.shape[-1] if input_dim is None else int(input_dim)
+        dt = self.fitted.Xp.dtype if dtype is None else dtype
+        for s in slots:
+            try:
+                self.predict(method, torch.zeros((int(s), D), dtype=dt,
+                                                 device=self.device),
+                             fault_plan=fault_plan)
+            except ConsensusDiverged:
+                # the geometry is counted before the host-side guard
+                # fires; a divergence on the synthetic warm batch is not a
+                # serving failure
+                continue
+
+    def predict(self, method: str, Xs, fault_plan=None):
         """Serve one query batch -> (mean (Nt,), var (Nt,), info).
 
         info carries the worst-tile final consensus residuals
         ("dac_residual", "jor_residual", "dale_residual") of the
         decentralized methods, and the CBNN mask (M, Nt) of the nn_*
-        methods."""
+        methods.
+
+        `fault_plan` (chaos.FaultPlan) injects the plan's consensus faults
+        and serves over the surviving subgraph. The result is then either
+        honestly DEGRADED (finite, computed over the largest live
+        component, flagged info["degraded"]=True with the component
+        census) or a typed `ConsensusDiverged` (non-finite output, or a
+        consensus residual above `degraded_tol`). A consensus-free plan
+        (stragglers, injected failures only) takes the exact path: bit
+        for bit the result without a plan."""
         if method not in self.METHODS:
             raise ValueError(f"unknown prediction method {method!r}; "
                              f"one of {self.METHODS}")
@@ -334,21 +494,59 @@ class PredictionEngine:
                 "npae_sparse serves from SparseExperts only — fit with "
                 "FleetConfig(sparse_m=...) (or fit_sparse_experts) to build "
                 "the pseudo-representation factors")
+        chaos = meta = None
+        if fault_plan is not None and not fault_plan.consensus_free:
+            if method.startswith("cen_"):
+                raise ValueError(
+                    f"{method}: centralized references do not run consensus "
+                    f"and cannot serve a fault plan with consensus faults")
+            if method == "npae_sparse":
+                raise ValueError(
+                    "npae_sparse runs exact collectives (no averaging "
+                    "consensus) and cannot serve a fault plan with "
+                    "consensus faults")
+            chaos, meta = self._chaos_arrays(fault_plan)
         Xs = self._queries(Xs)
-        geometry = (method, tuple(Xs.shape), Xs.dtype)
-        if geometry not in self._served:
-            # the reference traces once per new (method, query geometry);
-            # its zero-recompile contract is asserted against this count
-            self._served.add(geometry)
-            self._trace_count += 1
-            self._traces_total.inc(engine="replicated", method=method)
-        perq, red = map_query_tiles(lambda Xq: self._tile(method, Xq), Xs,
-                                    self.chunk)
+        geometry = (method, tuple(Xs.shape), Xs.dtype,
+                    None if chaos is None else chaos["mode"])
+        with self._lock:
+            if geometry not in self._served:
+                # the reference traces once per new (method, query
+                # geometry); its zero-recompile contract is asserted
+                # against this count
+                self._served.add(geometry)
+                self._trace_count += 1
+                self._traces_total.inc(engine="replicated", method=method)
+        perq, red = map_query_tiles(
+            lambda Xq: self._tile(method, Xq, chaos=chaos), Xs, self.chunk)
         info = dict(red)
         mask_t = perq.pop("mask_t", None)
         if mask_t is not None:
             info["mask"] = mask_t.T
-        return perq["mean"], perq["var"], info
+        mean, var = perq["mean"], perq["var"]
+        if chaos is not None:
+            scrubbed = int(info.pop("scrubbed"))
+            # guard the NETWORK consensus residuals (DAC/DALE), the part
+            # degradation perturbs; the per-query JOR residual is the exact
+            # path's masked math and stays reported, unguarded
+            residual = max((float(info[k]) for k in
+                            ("dac_residual", "dale_residual") if k in info),
+                           default=0.0)
+            finite = bool(torch.isfinite(mean).all()) \
+                and bool(torch.isfinite(var).all())
+            if not finite or not np.isfinite(residual) \
+                    or residual > self.degraded_tol:
+                self._diverged_total.inc(method=method)
+                raise ConsensusDiverged(
+                    f"{method}: degraded consensus did not converge "
+                    f"(residual={residual:.3e}, tol={self.degraded_tol:.1e},"
+                    f" finite={finite}) under fault plan {fault_plan!r}")
+            self._degraded_total.inc(method=method)
+            self._scrubbed_gauge.set(scrubbed)
+            self._alive_gauge.set(meta["alive_agents"])
+            info.update(meta)
+            info["scrubbed_agents"] = scrubbed
+        return mean, var, info
 
     @property
     def jit_cache_misses(self) -> int:
@@ -368,7 +566,8 @@ class PredictionEngine:
         flag = bool(flag)
         if flag != self.diagnostics:
             self.diagnostics = flag
-            self._served.clear()
+            with self._lock:
+                self._served.clear()
 
     def swap_experts(self, fitted: FittedExperts):
         """Hot-swap the served factors (the streaming case:
@@ -406,7 +605,10 @@ class PredictionEngine:
         self.A = A.to(self.device, torch.float64)
         if fitted is not None:
             self.fitted = fitted.to(self.device)
-        self._served.clear()         # the reference drops its programs
+        with self._lock:
+            self._served.clear()     # the reference drops its programs
+            # the fault arrays derive from A and M
+            self._chaos_cache.clear()
 
     def posterior_means_streamed(self, Xs):
         """Per-agent streamed posterior means (M, Nt) via the fused

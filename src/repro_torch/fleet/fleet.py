@@ -39,6 +39,19 @@ by either package loads into the other and serves equal predictions:
 diagnostics, and `metrics()` is the `obs` default registry's snapshot
 with a block for this fleet.
 
+Chaos and serving, as in the reference:
+
+    mean, var, info = fleet.predict(Xs, fault_plan=plan,
+                                    allow_degraded=True)   # chaos.FaultPlan
+    fleet.health()                  # graph, degraded/diverged totals
+    with fleet.to_server(batch=1024) as srv:   # launch.scheduler
+        mean, var = srv.submit(Xq).result()
+
+A degraded answer (dropped agents, a partition, scrubbed payloads) is
+returned only under `allow_degraded=True`, else raised as FleetDegraded
+with the answer attached; `slot_geometry` gives a scheduler its slot
+ladder (the engine chunk up to the method's `max_slot`).
+
 The fleet runs on `device` (default: cuda; raises when no card is present
 and the caller did not pass device="cpu"). The sharded engine is not
 ported yet (ROADMAP queue A).
@@ -53,7 +66,8 @@ import torch
 from ..checkpoint.io import (LeafSpec, leaf_keys, restore, save_checkpoint,
                              tree_unflatten)
 
-from ..core.consensus import (complete_graph, cycle_graph, path_graph,
+from ..core.consensus import (complete_graph, connected_components,
+                              cycle_graph, is_connected, path_graph,
                               random_connected_graph)
 from ..core.gp import augment, communication_dataset, pack
 from ..core.online import (OnlineExperts, from_batch, join, leave,
@@ -61,6 +75,7 @@ from ..core.online import (OnlineExperts, from_batch, join, leave,
 from ..core.prediction import FittedExperts, PredictionEngine, fit_experts
 from ..core.sparse import SparseExperts, fit_sparse_experts, select_inducing
 from ..device import resolve_device
+from ..launch.scheduler import ServingScheduler
 from ..obs import default_registry
 from .config import FleetConfig
 from .registry import get_method, get_trainer, validate_config
@@ -76,6 +91,19 @@ def _tensor(x, dtype, device) -> torch.Tensor:
 
 _FLEET_MANIFEST = "fleet.json"
 _FORMAT_VERSION = 1
+
+
+class FleetDegraded(RuntimeError):
+    """A prediction came back in DEGRADED mode (dropped agents, network
+    partition, scrubbed payloads) and the caller did not opt in with
+    `predict(..., allow_degraded=True)`. The degradation census is on
+    `.info`; the (finite, flagged) result itself is on `.result`."""
+
+    def __init__(self, message: str, info: dict | None = None,
+                 result=None):
+        super().__init__(message)
+        self.info = info or {}
+        self.result = result
 
 
 def _contiguous(experts):
@@ -122,6 +150,7 @@ class GPFleet:
         self._comm_data = None         # (Xc, yc, Xa, ya) when built
         self._online_state: OnlineExperts | None = None
         self._engine: PredictionEngine | None = None
+        self._last_degraded = None     # census of the last degraded predict
 
     @property
     def num_agents(self) -> int:
@@ -273,11 +302,20 @@ class GPFleet:
         return _contiguous(fit_sparse_experts(lt, Xp, yp, Z,
                                               jitter=cfg.jitter))
 
-    def predict(self, Xs, method: str | None = None):
+    def predict(self, Xs, method: str | None = None, *, fault_plan=None,
+                allow_degraded: bool = False):
         """Serve one query batch -> (mean (Nt,), var (Nt,), info).
 
         `method` overrides config.method for this call; `cen_*`
-        centralized references pass through to the engine."""
+        centralized references pass through to the engine.
+
+        `fault_plan` (chaos.FaultPlan) injects the plan's consensus faults:
+        the engine serves over the surviving subgraph and flags the result
+        info["degraded"]=True (see PredictionEngine.predict). A degraded
+        result is returned only under `allow_degraded=True`; otherwise it
+        is raised inside a FleetDegraded, so a caller never mistakes a
+        partial-fleet answer for a healthy one. Divergence raises
+        ConsensusDiverged either way."""
         cfg = self.config
         method = (method if method is not None
                   else cfg.method).replace("-", "_")
@@ -292,7 +330,77 @@ class GPFleet:
                 f"method {method!r} needs the grBCM augmented/"
                 f"communication experts; fit with a grbcm method "
                 f"configured (FleetConfig(method=...)) so they are built")
-        return self.engine.predict(method, Xs)
+        if fault_plan is None:
+            return self.engine.predict(method, Xs)
+        mean, var, info = self.engine.predict(method, Xs,
+                                              fault_plan=fault_plan)
+        if info.get("degraded"):
+            self._last_degraded = {k: info[k] for k in
+                                   ("alive_agents", "excluded_agents",
+                                    "n_components", "scrubbed_agents")}
+            if not allow_degraded:
+                raise FleetDegraded(
+                    f"prediction served in degraded mode "
+                    f"({info['alive_agents']}/{self.num_agents} agents "
+                    f"alive, {info['scrubbed_agents']} scrubbed) — pass "
+                    f"allow_degraded=True to accept flagged partial-fleet "
+                    f"results", info=info, result=(mean, var))
+        return mean, var, info
+
+    def slot_geometry(self, method: str | None = None) -> tuple[int, int]:
+        """(align, max_slot) for serving schedulers packing this fleet:
+        slots are multiples of the engine chunk up to the method registry's
+        `max_slot` (the NPAE family's per-query (M, M) solves cap out
+        earlier than the flat-tiling DAC family)."""
+        method = method if method is not None else self.config.method
+        base = method[4:] if method.startswith("cen_") else method
+        return int(self.config.chunk), int(get_method(base).max_slot)
+
+    def health(self) -> dict:
+        """Point-in-time fleet health: shape, consensus-graph connectivity,
+        the degraded/diverged serving totals (the engine's `obs`
+        counters; the registry is process-wide, so every engine's) and the
+        census of the last degraded prediction. Host-side graph analysis
+        only, no device work: safe to poll from a watchdog."""
+        labels = connected_components(self.A)
+        h = {
+            "num_agents": self.num_agents,
+            "is_fitted": self.is_fitted,
+            "sharded": self.config.sharded,
+            "graph_connected": bool(is_connected(self.A)),
+            "graph_components": int(len(set(labels.tolist()))),
+            "degraded_predictions": 0.0,
+            "diverged_predictions": 0.0,
+            "last_degraded": self._last_degraded,
+        }
+        eng = self._engine
+        if eng is not None:
+            h["degraded_predictions"] = sum(
+                v for _, v in eng._degraded_total.collect())
+            h["diverged_predictions"] = sum(
+                v for _, v in eng._diverged_total.collect())
+        return h
+
+    def to_server(self, batch: int = 256, *, max_wait_ms: float = 2.0,
+                  method: str | None = None, queue_depth: int = 1024,
+                  continuous: bool = True, warm: bool = True,
+                  admission: str = "block", deadline_policy: str = "drop"
+                  ) -> ServingScheduler:
+        """A started one-tenant `ServingScheduler` over this fleet: submit
+        (Nq, D) requests, get Futures of (mean, var); use as a context
+        manager to drain on exit. `continuous=True` serves the slot ladder
+        up to `batch` rows; `continuous=False` the one fixed geometry of
+        the v1 FrontDoor. `warm=True` serves every slot once first, so the
+        request path meets no new geometry."""
+        if self.fitted is None:
+            raise RuntimeError("to_server needs a fitted fleet — call fit() "
+                               "first")
+        sched = ServingScheduler(max_wait_ms=max_wait_ms)
+        sched.add_fleet("default", self, method=method, max_slot=int(batch),
+                        continuous=continuous, queue_depth=queue_depth,
+                        admission=admission, deadline_policy=deadline_policy,
+                        warm=warm)
+        return sched
 
     def metrics(self) -> dict:
         """Observability snapshot: the process-wide `obs` default registry

@@ -21,14 +21,21 @@ names its ROADMAP item (`get_trainer`, `get_method`, `validate_config`).
   (the grbcm variants need augmented/communication experts the streaming
   path does not maintain), `needs_augmented_data` (the grBCM
   communication dataset, paper eq. 16-17) and `sparse` (servable from
-  sparse pseudo-representation experts; the dense NPAE trio is not).
+  sparse pseudo-representation experts; the dense NPAE trio is not);
+  `max_slot`, the largest query batch a serving scheduler packs for the
+  method (the NPAE family's per-query (M, M) solves cap it at 256); and
+  `legacy`, the per-call `dec_*` function that refactorizes every call,
+  with `legacy_call(cfg, log_theta, Xp, yp, Xs, A, Xc, yc, Xa, ya)`, a
+  uniform adapter over its signature (what `serve_gp --compare-uncached`
+  times).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from ..core.sparse import (make_sparse_grad, select_inducing,
-                           train_fact_sparse)
+from ..core.prediction import decentralized as dec
+from ..core.sparse import (dec_npae_sparse, make_sparse_grad,
+                           select_inducing, train_fact_sparse)
 from ..core.training import (train_apx_gp, train_c_gp, train_dec_apx_gp,
                              train_dec_c_gp, train_dec_gapx_gp,
                              train_fact_gp, train_gapx_gp)
@@ -157,27 +164,98 @@ class MethodSpec(NamedTuple):
     online_safe: bool = True
     needs_augmented_data: bool = False
     sparse: bool = True
+    legacy: Callable | None = None
+    legacy_call: Callable | None = None
+    # largest query-batch slot a serving scheduler packs for this method:
+    # the NPAE family's per-query (M, M) solves make big batches memory-
+    # heavy, the DAC family tiles flat in the batch size
+    max_slot: int = 1024
+
+
+def _call_dac(fn):
+    def call(cfg, lt, Xp, yp, Xs, A, Xc=None, yc=None, Xa=None, ya=None):
+        return fn(lt, Xp, yp, Xs, A, iters=cfg.dac_iters)
+    return call
+
+
+def _call_grbcm(cfg, lt, Xp, yp, Xs, A, Xc=None, yc=None, Xa=None, ya=None):
+    return dec.dec_grbcm(lt, Xa, ya, Xc, yc, Xs, A, iters=cfg.dac_iters)
+
+
+def _call_npae(cfg, lt, Xp, yp, Xs, A, Xc=None, yc=None, Xa=None, ya=None):
+    return dec.dec_npae(lt, Xp, yp, Xs, A, jor_iters=cfg.jor_iters,
+                        dac_iters=cfg.dac_iters, jitter=cfg.npae_jitter)
+
+
+def _call_npae_star(cfg, lt, Xp, yp, Xs, A, Xc=None, yc=None, Xa=None,
+                    ya=None):
+    return dec.dec_npae_star(lt, Xp, yp, Xs, A, jor_iters=cfg.jor_iters,
+                             dac_iters=cfg.dac_iters, pm_iters=cfg.pm_iters,
+                             jitter=cfg.npae_jitter)
+
+
+def _call_nn(fn):
+    def call(cfg, lt, Xp, yp, Xs, A, Xc=None, yc=None, Xa=None, ya=None):
+        return fn(lt, Xp, yp, Xs, A, cfg.eta_nn, iters=cfg.dac_iters)
+    return call
+
+
+def _call_nn_grbcm(cfg, lt, Xp, yp, Xs, A, Xc=None, yc=None, Xa=None,
+                   ya=None):
+    return dec.dec_nn_grbcm(lt, Xa, ya, Xc, yc, Xs, A, cfg.eta_nn,
+                            iters=cfg.dac_iters, Xp=Xp)
+
+
+def _call_nn_npae(cfg, lt, Xp, yp, Xs, A, Xc=None, yc=None, Xa=None,
+                  ya=None):
+    return dec.dec_nn_npae(lt, Xp, yp, Xs, A, cfg.eta_nn,
+                           dale_iters=cfg.dale_iters,
+                           jitter=cfg.npae_jitter)
+
+
+def _call_npae_sparse(cfg, lt, Xp, yp, Xs, A, Xc=None, yc=None, Xa=None,
+                      ya=None):
+    return dec_npae_sparse(lt, Xp, yp, Xs, cfg.sparse_m,
+                           inducing_init=cfg.inducing_init,
+                           jitter=cfg.jitter, npae_jitter=cfg.npae_jitter)
+
+
+def _dac(fn, call=None, **flags):
+    """legacy + legacy_call keywords of a DAC-family entry."""
+    return dict(legacy=fn, legacy_call=call or _call_dac(fn), **flags)
 
 
 METHODS: dict[str, MethodSpec] = {s.name: s for s in (
-    MethodSpec("poe", "Alg. 5, eq. 12-13"),
-    MethodSpec("gpoe", "Alg. 6, eq. 12-13"),
-    MethodSpec("bcm", "Alg. 7, eq. 14-15"),
-    MethodSpec("rbcm", "Alg. 8, eq. 14-15"),
+    MethodSpec("poe", "Alg. 5, eq. 12-13", **_dac(dec.dec_poe)),
+    MethodSpec("gpoe", "Alg. 6, eq. 12-13", **_dac(dec.dec_gpoe)),
+    MethodSpec("bcm", "Alg. 7, eq. 14-15", **_dac(dec.dec_bcm)),
+    MethodSpec("rbcm", "Alg. 8, eq. 14-15", **_dac(dec.dec_rbcm)),
     MethodSpec("grbcm", "Alg. 9, eq. 16-17", online_safe=False,
-               needs_augmented_data=True),
-    MethodSpec("npae", "Alg. 10, eq. 18-21", "npae", sparse=False),
+               needs_augmented_data=True,
+               **_dac(dec.dec_grbcm, _call_grbcm)),
+    MethodSpec("npae", "Alg. 10, eq. 18-21", "npae", sparse=False,
+               legacy=dec.dec_npae, legacy_call=_call_npae, max_slot=256),
     MethodSpec("npae_star", "Alg. 11-12 (PM omega*)", "npae",
-               sparse=False),
-    MethodSpec("nn_poe", "Alg. 13, eq. 39"),
-    MethodSpec("nn_gpoe", "Alg. 14, eq. 39"),
-    MethodSpec("nn_bcm", "Alg. 15, eq. 39"),
-    MethodSpec("nn_rbcm", "Alg. 16, eq. 39"),
+               sparse=False, legacy=dec.dec_npae_star,
+               legacy_call=_call_npae_star, max_slot=256),
+    MethodSpec("nn_poe", "Alg. 13, eq. 39",
+               **_dac(dec.dec_nn_poe, _call_nn(dec.dec_nn_poe))),
+    MethodSpec("nn_gpoe", "Alg. 14, eq. 39",
+               **_dac(dec.dec_nn_gpoe, _call_nn(dec.dec_nn_gpoe))),
+    MethodSpec("nn_bcm", "Alg. 15, eq. 39",
+               **_dac(dec.dec_nn_bcm, _call_nn(dec.dec_nn_bcm))),
+    MethodSpec("nn_rbcm", "Alg. 16, eq. 39",
+               **_dac(dec.dec_nn_rbcm, _call_nn(dec.dec_nn_rbcm))),
     MethodSpec("nn_grbcm", "Alg. 17, eq. 39", online_safe=False,
-               needs_augmented_data=True),
-    MethodSpec("nn_npae", "Alg. 18, eq. 39", "npae", sparse=False),
+               needs_augmented_data=True,
+               **_dac(dec.dec_nn_grbcm, _call_nn_grbcm)),
+    MethodSpec("nn_npae", "Alg. 18, eq. 39", "npae", sparse=False,
+               legacy=dec.dec_nn_npae, legacy_call=_call_nn_npae,
+               max_slot=256),
     MethodSpec("npae_sparse", "Alg. 10 from Titsias low-rank factors "
-               "(core.sparse.lowrank)", "sparse", online_safe=False),
+               "(core.sparse.lowrank)", "sparse", online_safe=False,
+               legacy=dec_npae_sparse, legacy_call=_call_npae_sparse,
+               max_slot=256),
 )}
 
 # the reference's sparse=False methods: the dense NPAE family needs the

@@ -22,6 +22,7 @@ kernel.
 from __future__ import annotations
 
 import ctypes
+import threading
 import functools
 
 import torch
@@ -30,6 +31,9 @@ from . import _build
 
 #: kernel launches since import or the last `reset_launches()`
 launches = 0
+# `launches += 1` is a read-modify-write: serving threads (a scheduler's
+# worker, a watchdog's second worker) may launch at once
+_launches_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -122,7 +126,8 @@ def _launch(z, x, params, with_noise, col0, width):
     if rc != 0:
         raise RuntimeError(f"rbf_gram kernel launch failed: "
                            f"{lib.rbf_gram_error_string(rc).decode()}")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out
 
 

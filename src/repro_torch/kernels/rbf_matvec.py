@@ -23,6 +23,7 @@ sum their partials in rank order inside the launch.
 from __future__ import annotations
 
 import ctypes
+import threading
 import functools
 from typing import NamedTuple
 
@@ -32,6 +33,9 @@ from . import _build
 
 #: kernel launches since import or the last `reset_launches()`
 launches = 0
+# `launches += 1` is a read-modify-write: serving threads (a scheduler's
+# worker, a watchdog's second worker) may launch at once
+_launches_lock = threading.Lock()
 
 # the compile-time geometry of csrc/rbf_matvec.cu (checked at load)
 THREADS = 128                 # kThreads: threads of a block
@@ -180,7 +184,8 @@ def _launch(a, b, v, ls, sf2):
     if rc != 0:
         raise RuntimeError(f"rbf_matvec kernel launch failed: "
                            f"{lib.rbf_matvec_error_string(rc).decode()}")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out
 
 

@@ -1,6 +1,7 @@
 """The port on a CUDA card: the hand-written rbf_matvec, nll_grad,
 cholupdate, rbf_gram and flash_attention kernels against their plain
 versions, their dispatch, the serving path with and without rbf_matvec,
+degraded (fault-plan) serving and the serving scheduler on the card,
 training through nll_grad, the streaming fleet through cholupdate, the
 sparse fleet's fit through rbf_gram, and LM serving through
 flash_attention.
@@ -10,9 +11,11 @@ This file imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.chaos import Dropout, FaultPlan
 from repro_torch.core.consensus import path_graph
 from repro_torch.core.gp import cov_matrix, diff2_stack, inner_from_cov, pack
 from repro_torch.core.online import refit
@@ -141,6 +144,85 @@ def test_serve_gp_on_the_card(cuda, capsys):
     serve_gp.main(["--agents", "4", "--per-agent", "256", "--requests", "8",
                    "--batch", "128"])
     assert "rbcm: served" in capsys.readouterr().out
+
+
+def _cpu_and_card_fleets(cuda, method="rbcm"):
+    """One float32 fleet (M = 4 stripes of 500 points, path graph) fitted
+    on the CPU and on the card from the same numpy draw."""
+    rng = np.random.default_rng(3)
+    X = rng.uniform(0, 2, (2000, 2))
+    X = X[np.argsort(X[:, 0])].astype(np.float32)
+    y = (np.sin(2 * X[:, 0]) * np.cos(3 * X[:, 1])).astype(np.float32)
+    Xs = rng.uniform(0, 2, (300, 2)).astype(np.float32)
+    fleets = {}
+    for dev in ("cpu", cuda):
+        lt = pack([1.2, 0.3], 1.3, 0.1, dtype=torch.float32, device=dev)
+        fleets[torch.device(dev).type] = GPFleet(
+            FleetConfig(method=method, stream_mean=True), device=dev).fit(
+            X.reshape(4, 500, 2), y.reshape(4, 500), log_theta0=lt,
+            train=False)
+    return fleets, Xs
+
+
+@pytest.mark.parametrize("method", ["rbcm", "nn_rbcm", "npae"])
+def test_degraded_predict_on_the_card_matches_the_cpu(cuda, method):
+    """Dropout(0) with a NaN agent and a mid-run edge-lossy dropout: the
+    card serves the CPU's census, and its float32 moments within the
+    streamed mean's float32 rounding of the CPU's."""
+    fleets, Xs = _cpu_and_card_fleets(cuda)
+    for plan in (FaultPlan(dropouts=(Dropout(0),), nan_agents=(3,)),
+                 FaultPlan(seed=7, dropouts=(Dropout(1, at=50, until=150),),
+                           edge_loss=0.2)):
+        before = K.launches
+        mc, vc, ic = fleets["cuda"].predict(Xs, method=method,
+                                            fault_plan=plan,
+                                            allow_degraded=True)
+        assert K.launches == before + (0 if method == "npae" else 2)
+        m, v, i = fleets["cpu"].predict(Xs, method=method, fault_plan=plan,
+                                        allow_degraded=True)
+        for k in ("degraded", "alive_agents", "excluded_agents",
+                  "n_components", "scrubbed_agents"):
+            assert ic[k] == i[k], k
+        assert float((mc.cpu() - m).abs().max()) <= 1e-3
+        assert float((vc.cpu() - v).abs().max()) <= 1e-4
+
+
+def test_scheduler_round_trip_on_the_card(cuda):
+    """Two tenants of one ServingScheduler on the card (rbcm with a
+    Dropout(0) plan, npae): ragged host requests come back as the fleet's
+    own predictions, no geometry is new after warm-up, and rbcm's slots
+    went through rbf_matvec."""
+    fleets, Xs = _cpu_and_card_fleets(cuda)
+    fleet = fleets["cuda"]
+    plan = FaultPlan(dropouts=(Dropout(0),), fail_every=4)
+    with fleet.to_server(batch=512) as srv:
+        misses = fleet.jit_cache_misses
+        before = K.launches
+        reqs = [Xs[:n] for n in (1, 37, 256, 300)]
+        answers = [f.result(timeout=120) for f in
+                   [srv.submit(r) for r in reqs]]
+        assert K.launches > before and fleet.jit_cache_misses == misses
+    for r, (m, v) in zip(reqs, answers):
+        want = fleet.predict(r)
+        np.testing.assert_allclose(m, want[0].cpu().numpy(), atol=1e-5)
+        np.testing.assert_allclose(v, want[1].cpu().numpy(), atol=1e-6)
+    from repro_torch.launch.scheduler import ServingScheduler
+    with ServingScheduler(max_wait_ms=1.0) as sched:
+        sched.add_fleet("chaos", fleet, fault_plan=plan,
+                        retry_backoff_ms=0.1)
+        sched.add_fleet("npae", fleet, method="npae")
+        misses = fleet.jit_cache_misses
+        # one dispatch a request: the fourth call fails once, is retried
+        got = {t: [sched.add_request(Xs[:100], tenant=t).result(timeout=120)
+                   for _ in range(4)][-1] for t in ("chaos", "npae")}
+        assert fleet.jit_cache_misses == misses
+        assert sched.tenant_stats["chaos"].retried == 1
+    want = fleet.predict(Xs[:100], fault_plan=plan, allow_degraded=True)
+    np.testing.assert_allclose(got["chaos"][0], want[0].cpu().numpy(),
+                               atol=1e-5)
+    want = fleet.predict(Xs[:100], method="npae")
+    np.testing.assert_allclose(got["npae"][0], want[0].cpu().numpy(),
+                               atol=1e-5)
 
 
 def _nll_grad_inputs(dev, M, N, D, seed):

@@ -6,7 +6,7 @@ against the reference where it can run.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python3 tools/reference_witness.py \\
         [--per-agent 500,1000,2000] [--seed 0]
-        [--parts c8,gapx,npae,nn_npae,fullgp]
+        [--parts c8,gapx,npae,nn_npae,fullgp,c11]
 
   c8    DEC-NPAE* (npae_star) on a 4-agent path fleet of one draw of the
         paper's field (true theta, 256 held-out queries): RMSE against
@@ -33,6 +33,15 @@ against the reference where it can run.
         theta in float32 and in float64, from both packages: whether
         the moments are finite (a float32 Cholesky that fails gives NaN
         in both) and their RMSE against the noise-free field.
+  c11   rbcm on the c8 fleet in float32, 200 DAC sweeps, without a fault
+        plan and under FaultPlan(dropouts=(Dropout(0),)), with the
+        residual guard off (degraded_tol = inf), from both packages: the
+        final DAC residual each reports, beside the payload scale (the
+        largest sum over the agents of |beta_i / var_i|, which DAC's
+        float32 rounding floor is proportional to). The residual that
+        the reference's absolute degraded_tol = 1e-2 is held against.
+        The reference runs with jax_enable_x64 off, as JAX runs by
+        default: with it on, its degraded DAC fails to trace in float32.
 
 Each (part, size) prints one JSON line. The paper fleet itself is not run
 here: the reference's NPAE terms hold 16 Gram blocks of 8,100^2 points at
@@ -188,6 +197,56 @@ def fullgp(per_agent: int, seed: int) -> dict:
     return out
 
 
+def c11(per_agent: int, seed: int) -> dict:
+    import jax
+    jax.config.update("jax_enable_x64", False)
+    try:
+        return _c11(per_agent, seed)
+    finally:
+        jax.config.update("jax_enable_x64", True)
+
+
+def _c11(per_agent: int, seed: int) -> dict:
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    from repro.chaos import Dropout as JDropout
+    from repro.chaos import FaultPlan as JFaultPlan
+    from repro.core.consensus import path_graph as jpath_graph
+    from repro.core.prediction import PredictionEngine as JEngine
+    from repro.core.prediction import fit_experts as jfit_experts
+    from repro_torch.chaos import Dropout, FaultPlan
+    from repro_torch.core.consensus import path_graph
+    from repro_torch.core.gp import pack
+    from repro_torch.core.prediction import PredictionEngine, fit_experts
+    Xp, yp, Xq, _ = (a.astype(np.float32) for a in
+                     paper_field(per_agent, seed))
+    lt = pack(*TRUE_THETA, dtype=torch.float32)
+    jfit = jfit_experts(jnp.asarray(lt.numpy()), jnp.asarray(Xp),
+                        jnp.asarray(yp))
+    tfit = fit_experts(lt, torch.from_numpy(Xp), torch.from_numpy(yp))
+    kw = {"dac_iters": 200, "degraded_tol": math.inf}
+    jeng = JEngine(jfit, jpath_graph(4), **kw)
+    teng = PredictionEngine(tfit, path_graph(4), device="cpu", **kw)
+    mu, var = teng._moments(tfit, torch.from_numpy(Xq))
+    beta = 0.5 * (torch.log(tfit.prior_var) - torch.log(var))
+    out = {"part": "c11", "per_agent": per_agent, "seed": seed,
+           "dtype": "float32", "dac_iters": 200,
+           "payload_scale": float((beta / var).abs().sum(0).max())}
+    for pkg, run, plan in (
+            ("reference", lambda p: jeng.predict("rbcm", jnp.asarray(Xq),
+                                                 fault_plan=p),
+             JFaultPlan(dropouts=(JDropout(0),))),
+            ("port", lambda p: teng.predict("rbcm", torch.from_numpy(Xq),
+                                            fault_plan=p),
+             FaultPlan(dropouts=(Dropout(0),)))):
+        out[pkg] = {"exact_dac_residual": float(run(None)[2]
+                                                ["dac_residual"]),
+                    "drop0_dac_residual": float(run(plan)[2]
+                                                ["dac_residual"])}
+    return out
+
+
 def gapx(per_agent: int, seed: int) -> dict:
     import jax.numpy as jnp
     import numpy as np
@@ -249,7 +308,7 @@ def main(argv=None) -> int:
     jax.config.update("jax_enable_x64", True)
     torch.set_num_threads(4)
     parts = {"c8": c8, "gapx": gapx, "npae": npae, "nn_npae": nn_npae,
-             "fullgp": fullgp}
+             "fullgp": fullgp, "c11": c11}
     for part in args.parts.split(","):
         for n in (int(v) for v in args.per_agent.split(",")):
             print(json.dumps(parts[part](n, args.seed)), flush=True)
