@@ -187,6 +187,45 @@ Phases, one JSON line each:
            degraded, answers the degraded GPFleet.predict's); and it runs
            serve_gp.main(--scheduler --loadgen 30 --duration 2
            --fault-dropout 0 --fault-fail-every 5) at the paper size.
+  scenario the closed-loop mission (repro_torch.scenario): the reference's
+           "mission" (6 agents, gpoe, 24 steps, drift every 6; float32)
+           and "chaos" (5 agents, dropout of agent 1 over steps 4-10,
+           edge_loss 0.05, stragglers, fail_every 7, 5 s deadlines;
+           float64) presets at full width (SCENARIO_WIDTH: 8,100-point
+           windows full from the first step, 200 DAC sweeps, kappa
+           10,000, 4 requests of 256 rows a step, 1,024 eval points),
+           each run twice through run_scenario on the card. It checks the
+           replay digests equal, no hung or failed request and completed
+           + dropped = submitted, the chaos membership timeline [(4,
+           leave, 1), (10, rejoin, 1)] with recompiles at those steps
+           only and none on the clean mission, finite curves with the
+           final RMSE below RMSE_LIMIT and below the first, and the
+           launches of each run (counts reset just before it): cholupdate
+           once per observe round, nll_grad once per ADMM iteration of the
+           fit and the drift epochs, rbf_matvec once per query tile the
+           engine served. It reports per-step ms, observations/s, queries/
+           s of the dispatches, p50/p99 and each drift epoch's ms. Then
+           the smoke preset in float64 on the card against the CPU, one
+           host-drawn world (SCENARIO_TWIN_TOL).
+  sharded  the agent-sharded fleet (ShardedEngine on launch.mesh's agent
+           meshes): the methods phase's paper fleet (M = 4, float32,
+           streamed means, with the grBCM experts) on make_agent_mesh(4)
+           (one member on one card) and on four members of the card, every
+           DAC-family method on four 256-query tiles, DAC and exact
+           consensus, against the replicated engine within the two
+           engines' rounding bounds, the exact runs also against their
+           members' payloads summed in float64 within a few float32 ulps
+           (exact_sum_ulps), CBNN masks equal, rbf_matvec once per
+           tile per member and expert set, and on four members the routed nn_* methods
+           against the full output on the queries whose participants are
+           member-local; the M = 40 fleet (Ni = 810) on four members; the
+           m = 512 sparse fleet (float64 data) fitted on four members
+           (rbf_gram once per panel) and serving npae_sparse against the
+           replicated engine (SHARDED_NPAE_TOL); and the dec-apx-sharded
+           trainer through GPFleet.fit on four members (kappa 10,000, 20
+           iterations, nll_grad once per member per iteration) against the
+           simulated trainer on cycle_graph(4) (SHARDED_TRAIN_TOL). It
+           reports batch ms and q/s beside the replicated engine's.
   lm       LM serving: internlm2-1.8b at its published widths and depth
            (24 layers, d 2,048, 16 query / 8 KV heads, vocab 92,544,
            1.89 B float32 parameters drawn from the seed) through the
@@ -551,6 +590,83 @@ FRONTDOOR_LAUNCHER_ARGS = ["--agents", "4", "--per-agent", "8100",
                            "2", "--fault-dropout", "0",
                            "--fault-fail-every", "5"]
 
+# scenario phase: the reference's mission and chaos presets at the repo's
+# full width (four 8,100-point windows' worth per agent: every agent's
+# window holds WINDOW points from the first step), kappa as the train
+# phase's (TRAIN_KAPPA, C4); everything else from the preset. The mission
+# runs in float32; the chaos mission in float64, because in float32 the
+# reference's absolute degraded_tol refuses every degraded DAC tile at
+# this payload scale (C11).
+SCENARIO_WIDTH = dict(window=WINDOW, warmup_obs=WINDOW, chunk=BATCH,
+                      dac_iters=200, kappa=TRAIN_KAPPA, queries_per_step=4,
+                      query_rows=BATCH, max_slot=4 * BATCH,
+                      eval_points=4 * BATCH)
+SCENARIO_MISSIONS = (("mission", "float32"), ("chaos", "float64"))
+SCENARIO_RMSE_LIMIT = RMSE_LIMIT
+# The smoke preset on the card in float64 against the same preset on the
+# CPU in float64, world drawn on the host for both. The card's kernels
+# compute in float32 (kernels/ops.py): the observe factor, the streamed
+# means and the NLL gradient are rounded through float32 there and not on
+# the CPU, so the curves cannot agree to float64 roundoff. A CPU run of
+# the preset with those three results rounded through float32 moved the
+# RMSE curve by 1.2e-7 and the NLL curve by 8.6e-7 (drift NLLs 4.9e-7);
+# the gate allows ten times that.
+SCENARIO_TWIN_TOL = 1e-5
+# sharded phase: the paper fleet on make_agent_mesh(4) (one member on one
+# card) and on four members of cuda:0, and the M = 40 fleet on four; every
+# DAC-family method at the methods phase's tiles. Both engines read the
+# network sums out as a mean over agents (replicated) or members
+# (sharded), which DAC preserves exactly, so each is within its float32
+# rounding bound of the exact sums (DAC_ROUND's form: 2 dac_iters M u of
+# the summed |payloads|, the ring's ndev <= M) whether or not the
+# consensus converged: the gate is the sum of the two bounds. The
+# replicated engine runs DAC, so that gate cannot tell the sharded
+# engine's exact consensus from its DAC; an exact run is also held to
+# its members' own payloads summed and read out in float64, within
+# exact_sum_ulps(M, members) units of the summed |payloads|: a member's
+# sum of its M / members agents (M / members - 1), the ring's members - 1
+# folds, member 0's mean of the members' sums (members), and the
+# read-out's four roundings (the correction term, its sum, 1/prec and
+# mean = num / prec). A ring fault above a few float32 ulps of the
+# payloads fails it; the DAC bound (2 dac_iters M units) is 200 to 400
+# times wider.
+SHARDED_MESHES = (1, 4)
+
+
+def exact_sum_ulps(M, members):
+    return M // members - 1 + 2 * members + 4
+
+# Routing is exact on the queries whose CBNN-selected agents all live in
+# the member they were routed to. At the paper's lengthscales (1.2 across
+# the 0.5-wide stripes) every agent scores high everywhere and no query
+# is member-local, so the routed methods are reported there and held to
+# the full output on the reference test's localized setting
+# (tests/test_sharded_serving.py): lengthscales 0.08, eta_nn 0.8, queries
+# within 0.01 of the agents' centroids, here on the paper fleet's 4 x
+# 8,100 inputs in float64 (at lengthscale 0.08 their float32 Cholesky
+# fails; the rbf_matvec kernel computes in float32 either way).
+SHARDED_ROUTED_LS = (0.08, 0.08)
+SHARDED_ROUTED_ETA = 0.8
+SHARDED_ROUTED_PER_AGENT = 64
+SHARDED_M40 = 40
+SHARDED_M40_METHODS = ("poe", "gpoe", "bcm", "rbcm", "nn_poe", "nn_gpoe",
+                       "nn_bcm", "nn_rbcm")
+# npae_sparse: the sharded and the replicated engine run the same float64
+# solve on the same gathered factors; they part by float64 reduction order
+SHARDED_NPAE_TOL = 1e-6
+# dec-apx-sharded: 20 iterations at TRAIN_KAPPA on four members against
+# the simulated trainer on cycle_graph(4), both float32 with the kernel.
+# The two differ in the order of float32 operations only (the ring's
+# neighbour sum against the adjacency product, one nll_grad launch per
+# member against one for the fleet). At kappa = 10,000 the ADMM steps
+# amplify those roundings: the simulated float32 run ends 0.0226 in log
+# theta from the same iterations in float64 with the plain gradient, and
+# the sharded run 0.0012249 from the simulated one, the same reading in
+# three runs on the card (the kernels are deterministic; PERF.md §6). The
+# gate, SHARDED_TRAIN_TOL in log theta, is twice that reading; the
+# float64 distance is reported beside it.
+SHARDED_TRAIN_ITERS = 20
+SHARDED_TRAIN_TOL = 2.5e-3
 
 def card_line() -> str:
     return subprocess.run(
@@ -1186,6 +1302,9 @@ def cholupdate_cases(ctx, sms):
     case["refactorization_ms"] = cuda_ms(
         lambda: torch.linalg.cholesky(L @ L.mT + x[..., :, None]
                                       * x[..., None, :]), 3, warmup=1)
+    # the kernel line's library yardstick: that composed refactorization
+    # (the product, then one torch.linalg.cholesky of the four windows)
+    case["library_ms"] = case["refactorization_ms"]
     # where the time goes: the same launches with every column skipped (a
     # zero x: loads and stores, no rotation arithmetic), and with every
     # agent masked out (the fill's copy and the launches alone)
@@ -3458,6 +3577,542 @@ def phase_frontdoor(ctx):
     return out
 
 
+@contextlib.contextmanager
+def _mission_probes():
+    """Class-level probes of one mission, restored after it: the query
+    tiles the serving engine computes (each launches rbf_matvec once on the
+    streamed-mean path), the observe rounds and their seconds, the drift
+    epochs' milliseconds and the seconds the scheduler spends dispatching
+    (each probe synchronises the card around its call)."""
+    import torch
+    from repro_torch.core.prediction import PredictionEngine
+    from repro_torch.fleet import GPFleet
+    from repro_torch.launch.scheduler import ServingScheduler
+    rec = {"tiles": 0, "observe_calls": 0, "observations": 0,
+           "observe_s": 0.0, "drift_ms": [], "dispatch_s": 0.0}
+    orig = (PredictionEngine.predict, GPFleet.observe, GPFleet.drift,
+            ServingScheduler.step)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def predict(self, method, Xs, fault_plan=None):
+        rec["tiles"] += -(-len(Xs) // self.chunk)
+        return orig[0](self, method, Xs, fault_plan=fault_plan)
+
+    def observe(self, xs, ys):
+        out, dt = timed(lambda: orig[1](self, xs, ys))
+        rec["observe_calls"] += 1
+        rec["observations"] += len(xs)
+        rec["observe_s"] += dt
+        return out
+
+    def drift(self, **kw):
+        out, dt = timed(lambda: orig[2](self, **kw))
+        rec["drift_ms"].append(1e3 * dt)
+        return out
+
+    def step(self, **kw):
+        out, dt = timed(lambda: orig[3](self, **kw))
+        rec["dispatch_s"] += dt
+        return out
+    (PredictionEngine.predict, GPFleet.observe, GPFleet.drift,
+     ServingScheduler.step) = (predict, observe, drift, step)
+    try:
+        yield rec
+    finally:
+        (PredictionEngine.predict, GPFleet.observe, GPFleet.drift,
+         ServingScheduler.step) = orig
+
+
+def _mission_gates(name, cfg, r, launches, probe):
+    """The scenario phase's gates on one full-width mission run; returns
+    the failures found."""
+    import math
+    bad = []
+    s = r.serving
+    if r.hung_futures or s["failed"] or \
+            s["completed"] + s["dropped"] != s["submitted"]:
+        bad.append(f"{name}: serving {s}, {r.hung_futures} hung")
+    if name == "chaos":
+        if r.membership != [(4, "leave", 1), (10, "rejoin", 1)] or \
+                not set(r.recompile_steps) <= {4, 10}:
+            bad.append(f"chaos: membership {r.membership}, recompiles at "
+                       f"{r.recompile_steps}")
+    elif r.recompile_steps or r.membership:
+        bad.append(f"{name}: recompiles at {r.recompile_steps}, "
+                   f"membership {r.membership}")
+    for k in ("rmse", "nll", "degraded_fraction"):
+        if not all(math.isfinite(v) for v in r.curves[k]):
+            bad.append(f"{name}: non-finite {k} curve")
+    rmse = r.curves["rmse"]
+    if not (rmse[-1] < SCENARIO_RMSE_LIMIT and rmse[-1] < rmse[0]):
+        bad.append(f"{name}: final RMSE {rmse[-1]} (first {rmse[0]}, limit "
+                   f"{SCENARIO_RMSE_LIMIT})")
+    want = {"cholupdate": probe["observe_calls"],
+            "nll_grad": cfg.admm_iters + len(r.drift_steps) * cfg.drift_iters,
+            "rbf_matvec": probe["tiles"]}
+    if probe["observe_calls"] != cfg.steps or launches != want:
+        bad.append(f"{name}: launches {launches}, expected {want} "
+                   f"({probe['observe_calls']} observe calls)")
+    return bad
+
+
+def phase_scenario(ctx):
+    """The closed-loop mission at full width, twice each, and the smoke
+    preset on the card against the CPU (see the module docstring)."""
+    import statistics
+    import torch
+    from repro_torch.kernels import cholupdate as C
+    from repro_torch.kernels import nll_grad as G
+    from repro_torch.kernels import rbf_matvec as K
+    from repro_torch.scenario import preset, run_scenario, validate_bench
+    out = {"width": dict(SCENARIO_WIDTH), "missions": {}}
+    failures = []
+    totals = {"rbf_matvec": 0, "cholupdate": 0, "nll_grad": 0}
+    for name, dt in SCENARIO_MISSIONS:
+        cfg = preset(name).replace(**SCENARIO_WIDTH)
+        runs = []
+        for _ in range(2):
+            stamps = []
+            with _mission_probes() as probe:
+                torch.cuda.synchronize()
+                for k in (K, C, G):
+                    k.reset_launches()
+                t0 = time.perf_counter()
+                r = run_scenario(cfg, device=DEVICE,
+                                 dtype=getattr(torch, dt),
+                                 csv=lambda _: stamps.append(
+                                     time.perf_counter()))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {"rbf_matvec": K.launches,
+                            "cholupdate": C.launches, "nll_grad": G.launches}
+            validate_bench({"scenario": r.to_bench()})
+            failures += _mission_gates(name, cfg, r, launches, probe)
+            for k in totals:
+                totals[k] += launches[k]
+            runs.append((r, wall, launches, dict(probe), stamps))
+        (r, wall, launches, probe, stamps), (r2, wall2, *_) = runs
+        if r.replay_digest() != r2.replay_digest():
+            failures.append(f"{name}: the replay digests differ")
+        steps_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+        served = r.serving["completed"] * cfg.query_rows
+        out["missions"][name] = {
+            "dtype": dt, "agents": cfg.num_agents, "steps": cfg.steps,
+            "window": cfg.window, "method": cfg.method,
+            "drift_every": cfg.drift_every, "wall_s": [wall, wall2],
+            "step_ms_median": statistics.median(steps_ms),
+            "step_ms_max": max(steps_ms),
+            "observations_per_s": probe["observations"] / probe["observe_s"],
+            "queries_per_s_dispatch": served / probe["dispatch_s"],
+            "p50_ms": r.serving["p50_ms"], "p99_ms": r.serving["p99_ms"],
+            "drift_epoch_ms": probe["drift_ms"],
+            "rmse_first": r.curves["rmse"][0],
+            "rmse_last": r.curves["rmse"][-1],
+            "nll_first": r.curves["nll"][0], "nll_last": r.curves["nll"][-1],
+            "drift_nll": r.drift_nll, "alive": r.curves["alive"],
+            "degraded_fraction_max": max(r.curves["degraded_fraction"]),
+            "membership": r.membership,
+            "recompile_steps": r.recompile_steps,
+            "serving": {k: r.serving[k] for k in
+                        ("submitted", "completed", "dropped", "failed",
+                         "retried")},
+            "launches": launches, "tiles": probe["tiles"],
+            "digest": r.replay_digest(),
+            "digests_equal": r.replay_digest() == r2.replay_digest()}
+
+    # the smoke preset on the card and on the CPU, float64, one world
+    smoke = preset("smoke")
+    t0 = time.perf_counter()
+    card = run_scenario(smoke, device=DEVICE, dtype=torch.float64)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run_scenario(smoke, device="cpu", dtype=torch.float64)
+    cpu_s = time.perf_counter() - t0
+    diffs = {k: max(abs(a - b) for a, b in zip(card.curves[k],
+                                              cpu.curves[k]))
+             for k in ("rmse", "nll")}
+    diffs["drift_nll"] = max((abs(a - b) for a, b in
+                              zip(card.drift_nll, cpu.drift_nll)),
+                             default=0.0)
+    same = (card.curves["step"] == cpu.curves["step"]
+            and card.curves["alive"] == cpu.curves["alive"]
+            and card.drift_steps == cpu.drift_steps
+            and card.membership == cpu.membership
+            and card.recompile_steps == cpu.recompile_steps)
+    if not same or not max(diffs.values()) <= SCENARIO_TWIN_TOL:
+        failures.append(f"smoke preset, card vs CPU (float64): curve "
+                        f"differences {diffs} (tolerance "
+                        f"{SCENARIO_TWIN_TOL}), timelines equal: {same}")
+    out["smoke_twin"] = {"card_s": card_s, "cpu_s": cpu_s,
+                         "max_abs_diff": diffs, "tol": SCENARIO_TWIN_TOL,
+                         "timelines_equal": same,
+                         "card_rmse": card.curves["rmse"],
+                         "cpu_rmse": cpu.curves["rmse"]}
+    for k, n in totals.items():
+        ctx["launches_by_path"][k]["scenario"] = n
+    if failures:
+        emit({"phase": "scenario", "report_of_a_failed_phase": True, **out})
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def _sharded_gate(method, got, want, scales, bound):
+    """|1/var| and |mean/var| of a sharded result against `want`, per
+    query, within `bound` (in units of the summed |payloads|, SHARDED_MESHES
+    note); returns the largest share of it."""
+    share = 0.0
+    for g, w, sc in ((1 / got[1], 1 / want[1], scales[0]),
+                     (got[0] / got[1], want[0] / want[1], scales[1])):
+        err = (g.double() - w.double()).abs()
+        share = max(share, float((err / (bound * sc.double())).max()))
+    if not share <= 1.0:
+        raise AssertionError(f"sharded {method} differs from the reference "
+                             f"result by {share} x its rounding bound")
+    return share
+
+
+def _exact_sum_gate(method, eng, Xq, got):
+    """A consensus="exact" sharded result against its members' own
+    payloads summed in float64 and read out in float64, query by query,
+    within exact_sum_ulps(M, members) units of the summed |payloads|;
+    returns the largest share of the bound."""
+    import torch
+    base = method[3:] if method.startswith("nn_") else method
+    d0 = eng.devices[0]
+    M = sum(f.num_agents for f in eng.fitted)
+    want, scales = [], []
+    for xq in Xq.split(eng.chunk):
+        Xqs = [xq.to(d) for d in eng.devices]
+        masks = eng._masks(Xqs, ring=True) if base != method else None
+        w0, comm = eng._payloads(method, Xqs, masks, ring=True)
+        w = torch.cat([x.to(d0).double() for x in w0])   # (M, chunk, 3)
+        s, a = w.sum(0), w.abs().sum(0)
+        if base == "grbcm":
+            mu_c, var_c = (c.to(d0).double() for c in comm[0])
+            prec = s[:, 1] + (1.0 - s[:, 2]) / var_c
+            num = s[:, 0] - (s[:, 2] - 1.0) * mu_c / var_c
+            sc = (a[:, 1] + (1.0 + a[:, 2]) / var_c,
+                  a[:, 0] + (1.0 + a[:, 2]) * mu_c.abs() / var_c)
+        else:
+            pv = eng.fitted[0].prior_var.to(d0).double()
+            corr = base in ("bcm", "rbcm")
+            prec = s[:, 1] + (1.0 - s[:, 2]) / pv if corr else s[:, 1]
+            num = s[:, 0]
+            sc = (a[:, 1] + (1.0 + a[:, 2]) / pv if corr else a[:, 1],
+                  a[:, 0])
+        want.append((num / prec, 1.0 / prec))
+        scales.append(sc)
+    want = tuple(torch.cat(t) for t in zip(*want))
+    scales = tuple(torch.cat(t) for t in zip(*scales))
+    return _sharded_gate(method, got, want, scales,
+                         exact_sum_ulps(M, eng.ndev) * UNIT)
+
+
+def _payload_scales(method, f, fa, fc, Xq, mask):
+    """_dac_scales of the replicated engine's payloads for `method`."""
+    from repro_torch.core.prediction.local import local_moments_cached
+    base = method[3:] if method.startswith("nn_") else method
+    if base == "grbcm":
+        mu, var = local_moments_cached(fa.log_theta, fa.Xp, fa.L, fa.alpha,
+                                       Xq)
+        mu_c, var_c = local_moments_cached(fc.log_theta, fc.Xp, fc.L,
+                                           fc.alpha, Xq)
+        return _dac_scales(method, mu, var, f.prior_var, mask, mu_c[0],
+                           var_c[0])
+    mu, var = local_moments_cached(f.log_theta, f.Xp, f.L, f.alpha, Xq)
+    return _dac_scales(method, mu, var, f.prior_var, mask)
+
+
+def _sharded_fleet(failures, rep, f, fa, fc, Xq, methods, meshes, cfg,
+                   routed=False):
+    """Every method of `methods` from the replicated engine `rep` and from
+    ShardedEngines on `meshes` (DAC and exact), gated; returns the report
+    and the rbf_matvec launches of the sharded calls."""
+    import torch
+    from repro_torch.core.prediction import ShardedEngine
+    from repro_torch.kernels import rbf_matvec as K
+    M = f.num_agents
+    tiles = -(-Xq.shape[0] // cfg.chunk)
+    report, launches = {}, 0
+    for method in methods:
+        want = rep.predict(method, Xq)
+        rep_ms = cuda_ms(lambda: rep.predict(method, Xq), 1, warmup=0)
+        mask = want[2].get("mask")
+        scales = _payload_scales(method, f, fa, fc, Xq, mask)
+        rec = {"replicated_batch_ms": rep_ms}
+        for name, mesh in meshes.items():
+            for consensus in ("dac", "exact"):
+                eng = ShardedEngine(f, mesh, chunk=cfg.chunk,
+                                    dac_iters=cfg.dac_iters,
+                                    eta_nn=cfg.eta_nn, consensus=consensus,
+                                    fitted_aug=fa, fitted_comm=fc,
+                                    stream_mean=True)
+                torch.cuda.synchronize()
+                K.reset_launches()
+                got = eng.predict(method, Xq)
+                torch.cuda.synchronize()
+                n = K.launches
+                launches += n
+                key = f"{name}_{consensus}"
+                try:
+                    want_n = MATVEC_PER_TILE[method] * mesh.size * tiles
+                    if n != want_n:
+                        raise AssertionError(
+                            f"sharded {method} on {name}: rbf_matvec "
+                            f"launched {n} times for {tiles} tiles on "
+                            f"{mesh.size} members (expected {want_n})")
+                    rec[key + "_share_of_bound"] = _sharded_gate(
+                        method, got, want, scales,
+                        2 * (2 * cfg.dac_iters * M) * UNIT)
+                    if consensus == "exact":
+                        rec[key + "_share_of_exact_bound"] = \
+                            _exact_sum_gate(method, eng, Xq, got)
+                    if mask is not None and not torch.equal(
+                            got[2]["mask"], mask):
+                        raise AssertionError(f"sharded {method} on {name}: "
+                                             f"the CBNN mask differs")
+                except AssertionError as e:
+                    failures.append(str(e))
+                if consensus == "dac":
+                    ms = cuda_ms(lambda: eng.predict(method, Xq), 1,
+                                 warmup=0)
+                    rec[key + "_batch_ms"] = ms
+                    rec[key + "_queries_per_s"] = 1e3 * Xq.shape[0] / ms
+                    rec[key + "_dac_residual"] = float(got[2]["dac_residual"])
+            if routed and method.startswith("nn_") and mesh.size > 1:
+                launches += _routed_check(failures, rec, f, fa, fc, rep.A,
+                                          Xq, method, name, mesh, cfg,
+                                          cfg.eta_nn)
+        report[method] = rec
+    return report, launches
+
+
+def _routed_check(failures, rec, f, fa, fc, A, Xq, method, name, mesh, cfg,
+                  eta, need_local=False):
+    """predict_routed of `method` at CBNN threshold `eta` against the
+    replicated engine's full output at `eta`, on the queries whose
+    selected agents all live in the member they were routed to (with
+    `need_local`, there must be such queries); returns the rbf_matvec
+    launches."""
+    import torch
+    from repro_torch.core.prediction import PredictionEngine, ShardedEngine
+    from repro_torch.kernels import rbf_matvec as K
+    M = f.num_agents
+    full = PredictionEngine(f, A, chunk=cfg.chunk, dac_iters=cfg.dac_iters,
+                            eta_nn=eta, fitted_aug=fa, fitted_comm=fc,
+                            stream_mean=True, device=DEVICE)
+    want = full.predict(method, Xq)
+    mask = want[2]["mask"]
+    eng = ShardedEngine(f, mesh, chunk=cfg.chunk, dac_iters=cfg.dac_iters,
+                        eta_nn=eta, fitted_aug=fa, fitted_comm=fc,
+                        stream_mean=True)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    mean, var, info = eng.predict_routed(method, Xq)
+    torch.cuda.synchronize()
+    n = K.launches
+    ms = cuda_ms(lambda: eng.predict_routed(method, Xq), 1, warmup=0)
+    Mb = M // mesh.size
+    members = torch.arange(M, device=mask.device) // Mb
+    shard = torch.as_tensor(info["shard"], device=mask.device)
+    local = ~(mask & (members[:, None] != shard[None, :])).any(0)
+    key = f"{name}_routed_eta{eta:g}"
+    rec[key + "_local_queries"] = int(local.sum())
+    rec[key + "_batch_per_shard"] = info["batch_per_shard"]
+    rec[key + "_batch_ms"] = ms
+    try:
+        want_n = MATVEC_PER_TILE[method] * mesh.size * \
+            info["batch_per_shard"] // cfg.chunk
+        if n != want_n:
+            raise AssertionError(f"routed {method}: rbf_matvec launched {n} "
+                                 f"times, expected {want_n}")
+        if need_local and not bool(local.any()):
+            raise AssertionError(f"routed {method} at eta {eta}: no query "
+                                 f"has member-local participants")
+        if not torch.equal(info["n_selected"][local], mask.sum(0)[local]):
+            raise AssertionError(f"routed {method}: participant counts "
+                                 f"differ")
+        sc = _payload_scales(method, f, fa, fc, Xq, mask)
+        if bool(local.any()):
+            rec[key + "_share_of_bound"] = _sharded_gate(
+                method, (mean[local], var[local]),
+                (want[0][local], want[1][local]),
+                (sc[0][local], sc[1][local]),
+                2 * (2 * cfg.dac_iters * M) * UNIT)
+    except AssertionError as e:
+        failures.append(str(e))
+    return n
+
+
+def phase_sharded(ctx):
+    """The agent-sharded fleet on the card (see the module docstring)."""
+    import torch
+    from repro_torch.core.consensus import cycle_graph, path_graph
+    from repro_torch.core.gp import pack, stripe_partition
+    from repro_torch.core.prediction import (PredictionEngine, ShardedEngine,
+                                             fit_experts)
+    from repro_torch.core.training import train_dec_apx_gp
+    from repro_torch.fleet import FleetConfig, GPFleet
+    from repro_torch.kernels import nll_grad as G
+    from repro_torch.kernels import rbf_gram as RG
+    from repro_torch.kernels import rbf_matvec as K
+    from repro_torch.launch.mesh import make_agent_mesh
+    dev = torch.device(DEVICE)
+    Xp, yp, Xq, fq = paper_data(ctx)
+    n_q = METHOD_TILES * BATCH
+    Xq, fq = Xq[:n_q], fq[:n_q]
+    lt = pack(*TRUE_THETA, dtype=torch.float32, device=dev)
+    fleet = ctx.get("methods_fleet")
+    if fleet is None:
+        fleet = GPFleet(FleetConfig(method="grbcm", stream_mean=True),
+                        device=DEVICE).fit(
+            Xp, yp, generator=torch.Generator(dev).manual_seed(
+                ctx["seed"] + 7), log_theta0=lt, train=False)
+    cfg = fleet.config
+    f, fa, fc = fleet.fitted, fleet.fitted_aug, fleet.fitted_comm
+    meshes = {"mesh1": make_agent_mesh(cfg.num_agents),
+              "mesh4": make_agent_mesh(cfg.num_agents,
+                                       devices=(DEVICE,) * 4)}
+    if [m.size for m in meshes.values()] != list(SHARDED_MESHES):
+        raise AssertionError(f"agent meshes of {[m.size for m in meshes.values()]}"
+                             f" members, expected {SHARDED_MESHES}")
+    failures = []
+    rep = PredictionEngine(f, fleet.A, chunk=cfg.chunk,
+                           dac_iters=cfg.dac_iters, eta_nn=cfg.eta_nn,
+                           fitted_aug=fa, fitted_comm=fc, stream_mean=True,
+                           device=DEVICE)
+    methods = tuple(m for m in ShardedEngine.METHODS if m != "npae_sparse")
+    out = {"queries": n_q, "chunk": cfg.chunk, "dac_iters": cfg.dac_iters}
+    out["paper_fleet"], matvec = _sharded_fleet(
+        failures, rep, f, fa, fc, Xq, methods, meshes, cfg, routed=True)
+
+    # routing where it is exact (SHARDED_ROUTED_LS note)
+    lt_r = pack(list(SHARDED_ROUTED_LS), TRUE_THETA[1], TRUE_THETA[2],
+                dtype=torch.float64, device=dev)
+    f_r = fit_experts(lt_r, Xp.double(), yp.double())
+    gen = torch.Generator(dev).manual_seed(ctx["seed"] + 11)
+    Xr = (Xp.double().mean(1)[:, None, :] + 0.01 * torch.randn(
+        Xp.shape[0], SHARDED_ROUTED_PER_AGENT, 2, generator=gen,
+        dtype=torch.float64, device=dev)).reshape(-1, 2)
+    out["routed_localized"] = {}
+    for method in ("nn_poe", "nn_gpoe", "nn_bcm", "nn_rbcm"):
+        rec = out["routed_localized"][method] = {}
+        matvec += _routed_check(failures, rec, f_r, None, None, fleet.A, Xr,
+                                method, "mesh4", meshes["mesh4"], cfg,
+                                SHARDED_ROUTED_ETA, need_local=True)
+    del f_r
+
+    # the M = 40 fleet over the same points, on four members
+    X, y = Xp.reshape(-1, 2), yp.reshape(-1)
+    Xp40, yp40 = stripe_partition(X, y, SHARDED_M40)
+    cfg40 = FleetConfig(num_agents=SHARDED_M40, stream_mean=True)
+    f40 = GPFleet(cfg40, device=DEVICE).fit(Xp40, yp40, log_theta0=lt,
+                                            train=False)
+    rep40 = PredictionEngine(f40.fitted, f40.A, chunk=cfg40.chunk,
+                             dac_iters=cfg40.dac_iters, eta_nn=cfg40.eta_nn,
+                             stream_mean=True, device=DEVICE)
+    out["m40_fleet"], n40 = _sharded_fleet(
+        failures, rep40, f40.fitted, None, None, Xq, SHARDED_M40_METHODS,
+        {"mesh4": make_agent_mesh(SHARDED_M40, devices=(DEVICE,) * 4)},
+        cfg40)
+    matvec += n40
+    del f40, rep40
+
+    # npae_sparse: the m = 512 sparse fleet (float64 data, C6) fitted and
+    # served sharded on four members, against the replicated engine
+    scfg = FleetConfig(sparse_m=SPARSE_M, method="npae_sparse",
+                       sharded=True, stream_mean=True)
+    torch.cuda.synchronize()
+    RG.reset_launches()
+    t0 = time.perf_counter()
+    sfl = GPFleet(scfg, mesh=meshes["mesh4"], device=DEVICE).fit(
+        Xp.double(), yp.double(), log_theta0=lt.double(), train=False)
+    torch.cuda.synchronize()
+    sfit_ms = 1e3 * (time.perf_counter() - t0)
+    gram = RG.launches
+    panels = -(-Xp.shape[1] // KMN_PANEL)
+    if gram != panels:
+        failures.append(f"sparse fit: rbf_gram launched {gram} times for "
+                        f"{panels} panels")
+    got = sfl.predict(Xq.double())
+    sh_ms = cuda_ms(lambda: sfl.predict(Xq.double()), 1, warmup=0)
+    srep = PredictionEngine(sfl.fitted, path_graph(cfg.num_agents),
+                            chunk=scfg.chunk, device=DEVICE)
+    want = srep.predict("npae_sparse", Xq.double())
+    rep_ms = cuda_ms(lambda: srep.predict("npae_sparse", Xq.double()), 1,
+                     warmup=0)
+    npae_err = max(float((a - b).abs().max() / max(float(b.abs().max()), 1.0))
+                   for a, b in zip(got[:2], want[:2]))
+    if not npae_err <= SHARDED_NPAE_TOL:
+        failures.append(f"sharded npae_sparse: {npae_err} from the "
+                        f"replicated engine (> {SHARDED_NPAE_TOL})")
+    out["npae_sparse"] = {
+        "m": SPARSE_M, "members": sfl.engine.ndev, "fit_ms": sfit_ms,
+        "rbf_gram_launches": gram, "panels": panels,
+        "max_rel_err_vs_replicated": npae_err, "batch_ms": sh_ms,
+        "replicated_batch_ms": rep_ms,
+        "rmse_vs_field": _rmse(got[0], fq.double())}
+    del sfl, srep
+
+    # dec-apx-sharded: GPFleet's trainer on four members against the
+    # simulated trainer on cycle_graph(4) (SHARDED_TRAIN_TOL note)
+    tcfg = FleetConfig(trainer="dec-apx-sharded", kappa=TRAIN_KAPPA,
+                       admm_iters=SHARDED_TRAIN_ITERS, stream_mean=True)
+    th0 = tcfg.theta0
+    lt0 = pack(list(th0[:-2]), th0[-2], th0[-1], dtype=torch.float32,
+               device=dev)
+    torch.cuda.synchronize()
+    G.reset_launches()
+    t0 = time.perf_counter()
+    tfl = GPFleet(tcfg, mesh=meshes["mesh4"], device=DEVICE).fit(
+        Xp, yp, log_theta0=lt0)
+    torch.cuda.synchronize()
+    sh_fit_ms = 1e3 * (time.perf_counter() - t0)
+    sh_launches = G.launches
+    if sh_launches != 4 * SHARDED_TRAIN_ITERS:
+        failures.append(f"dec-apx-sharded launched nll_grad {sh_launches} "
+                        f"times, expected one per member per iteration")
+    kw = dict(rho=tcfg.rho, kappa=tcfg.kappa, iters=SHARDED_TRAIN_ITERS)
+    A = cycle_graph(4)
+    t0 = time.perf_counter()
+    th_sim, info_sim = train_dec_apx_gp(lt0, Xp, yp, A, **kw)
+    torch.cuda.synchronize()
+    sim_ms = 1e3 * (time.perf_counter() - t0)
+    th_64, _ = train_dec_apx_gp(lt0.double(), Xp.double(), yp.double(), A,
+                                grad_fn=plain_local_grad, **kw)
+    f32_err = float((th_sim.double() - th_64).abs().max())
+    diff = float((tfl.thetas - th_sim).abs().max())
+    res_diff = float((tfl.train_info["residuals"]
+                      - info_sim["residuals"]).abs().max())
+    if not diff <= SHARDED_TRAIN_TOL:
+        failures.append(f"dec-apx-sharded: log theta {diff} from the "
+                        f"simulated trainer (> {SHARDED_TRAIN_TOL}; float32 "
+                        f"is {f32_err} from float64)")
+    mean = tfl.predict(Xq)[0]
+    out["dec_apx_sharded"] = {
+        "members": 4, "iters": SHARDED_TRAIN_ITERS, "kappa": tcfg.kappa,
+        "fit_ms": sh_fit_ms, "simulated_train_ms": sim_ms,
+        "nll_grad_launches": sh_launches,
+        "max_abs_log_theta_vs_simulated": diff,
+        "max_abs_log_theta_f32_vs_f64_simulated": f32_err,
+        "max_abs_residual_diff": res_diff,
+        "trained_theta": torch.exp(tfl.log_theta).tolist(),
+        "rmse_vs_field": _rmse(mean, fq)}
+    ctx["launches_by_path"]["rbf_matvec"]["sharded"] = matvec
+    ctx["launches_by_path"]["rbf_gram"]["sharded"] = gram
+    ctx["launches_by_path"]["nll_grad"]["dec-apx-sharded"] = sh_launches
+    if failures:
+        emit({"phase": "sharded", "report_of_a_failed_phase": True, **out})
+        raise AssertionError("; ".join(failures))
+    return out
+
 def plain_attention(q, k, v, causal=True, window=None, scale=None):
     """ops.flash_attention's signature with the kernel's plain version in
     its place, on whatever device the inputs lie: the attention hook that
@@ -3699,6 +4354,7 @@ def main(argv=None) -> int:
               ("train", phase_train), ("online", phase_online),
               ("sparse", phase_sparse), ("persist", phase_persist),
               ("chaos", phase_chaos), ("frontdoor", phase_frontdoor),
+              ("scenario", phase_scenario), ("sharded", phase_sharded),
               ("lm", phase_lm)]
     if args.profile:
         phases.append(("profile", phase_profile))

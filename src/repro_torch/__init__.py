@@ -12,7 +12,9 @@ with the streamed posterior mean on a hand-written CUDA kernel
 (`kernels/csrc/rbf_matvec.cu`); training (DEC-apx-GP and the other ported
 trainers), with the NLL gradient on `kernels/csrc/nll_grad.cu`; and the
 streaming fleet (`core/online`: sliding windows, observe/drift/join/
-leave), with the rank-1 factor update on `kernels/csrc/cholupdate.cu`.
+leave), with the rank-1 factor update on `kernels/csrc/cholupdate.cu`;
+the closed-loop mission (`scenario`); and the agent-sharded fleet
+(`launch.mesh`, `core.prediction.ShardedEngine`, the ring collectives).
 ROADMAP.md lists what is still to come.
 """
 from .device import resolve_device

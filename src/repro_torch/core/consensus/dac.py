@@ -8,6 +8,15 @@ eps in (0, 1/Delta). `dac` runs a fixed sweep count and returns the
 per-sweep maximin residuals like the reference's `lax.scan`; `dac_until`
 is the adaptive Python-level wrapper; `dac_time_varying` runs one
 adjacency per sweep (paper Assumption 1).
+
+Sharded mode (the reference's shard_map + ppermute collectives): one
+tensor per member of an agent mesh (`launch.mesh.AgentMesh`), each on its
+member's device, and one tensor per member back. A ring hop moves member
+i's tensor to member i+1's device (`.to(..., non_blocking=True)`, in the
+reference's ppermute order), so the messages are neighbour-only as on
+the reference's device ring. `dac_sharded` is paper eq. 35 on the ring;
+`ring_allreduce` (`ring_allsum`, `ring_allmax`) and `ring_allgather` are
+the exact finite protocols of n - 1 hops.
 """
 from __future__ import annotations
 
@@ -79,3 +88,95 @@ def dac_time_varying(w0: torch.Tensor, A_seq: torch.Tensor, eps: float):
         res.append(_maximin_residual(w.reshape(M, -1)))
     traj = torch.stack(res) if res else w0.new_zeros(0)
     return w, traj
+
+
+# ---------------------------------------------------------------------------
+# Sharded mode: one tensor per mesh member, ring messages between members
+# ---------------------------------------------------------------------------
+
+def _hop(ws, shift: int = 1):
+    """One ring permutation: member i's tensor goes to member (i + shift)
+    mod n, on that member's device. Returns the received tensors."""
+    n = len(ws)
+    return [ws[(j - shift) % n].to(ws[j].device, non_blocking=True)
+            for j in range(n)]
+
+
+def dac_sharded(ws, iters: int, eps=None, with_residuals: bool = False):
+    """DAC on the cycle graph of the mesh members (paper eq. 35 on the
+    ring): each sweep every member exchanges with its two ring
+    neighbours. ws: one tensor per member. Returns the members' tensors
+    after `iters` sweeps, and with `with_residuals=True` also the per-sweep
+    maximin spread across the members (iters,) on member 0's device (the
+    reference's opt-in diagnostic, two more collectives a sweep)."""
+    n = len(ws)
+    if eps is None:
+        eps = 1.0 / 3.0          # cycle graph: Delta = 2, eps < 1/Delta
+    w = list(ws)
+    res = []
+    for _ in range(iters):
+        left, right = _hop(w, 1), _hop(w, -1)
+        nbr = torch._foreach_add(torch._foreach_sub(left, w),
+                                 torch._foreach_sub(right, w))
+        if n == 2:
+            # on a 2-ring both permutations deliver the SAME neighbour;
+            # halve so the gain matches the single-edge graph
+            torch._foreach_mul_(nbr, 0.5)
+        w = torch._foreach_add(w, nbr, alpha=eps)
+        if with_residuals:
+            res.append(dac_sharded_residual(w)[0])
+    if with_residuals:
+        traj = torch.stack(res) if res else ws[0].new_zeros(0)
+        return w, traj
+    return w
+
+
+def dac_sharded_residual(ws):
+    """Maximin consensus spread ACROSS the members, worst entry: the
+    members' elementwise maximum minus their minimum (both exact ring
+    reductions), replicated on every member."""
+    hi = ring_allreduce(ws, torch.maximum)
+    lo = ring_allreduce(ws, torch.minimum)
+    return [(h - l).amax() for h, l in zip(hi, lo)]
+
+
+def ring_allreduce(ws, op=torch.add):
+    """EXACT all-reduce using only neighbour ring messages: each of the
+    n - 1 hops forwards the travelling message one member on and folds it
+    into the local accumulator, so every member ends with op(w_0, ...,
+    w_{n-1}), folded in ring-arrival order (the members may differ in the
+    last ulp for a non-associative op, as in the reference)."""
+    acc, msg = list(ws), list(ws)
+    for _ in range(len(ws) - 1):
+        msg = _hop(msg, 1)
+        acc = [op(a, m) for a, m in zip(acc, msg)]
+    return acc
+
+
+def ring_allgather(ws):
+    """EXACT all-gather using only neighbour ring messages: member j gets
+    (n,) + w.shape with out[i] = member i's tensor, each of the n - 1 hops
+    placing the travelling message at its origin slot. Placement, not
+    reduction, so every member holds bit-identical copies."""
+    n = len(ws)
+    out = []
+    for j, w in enumerate(ws):
+        o = w.new_zeros((n,) + tuple(w.shape))
+        o[j] = w
+        out.append(o)
+    msg = list(ws)
+    for hop in range(1, n):
+        msg = _hop(msg, 1)
+        for j in range(n):
+            out[j][(j - hop) % n] = msg[j]
+    return out
+
+
+def ring_allsum(ws):
+    """`ring_allreduce` with addition (exact network sums on the ring)."""
+    return ring_allreduce(ws, torch.add)
+
+
+def ring_allmax(ws):
+    """`ring_allreduce` with the elementwise maximum (max-flooding)."""
+    return ring_allreduce(ws, torch.maximum)

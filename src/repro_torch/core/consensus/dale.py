@@ -57,3 +57,20 @@ def dale(H, b, A, iters: int):
     Q, res = _iterate(step, x_part.reshape(Bn, M, M * K), iters)
     Q = Q.reshape(*batch, M, M, K)
     return (Q[..., 0] if vec else Q), res.T.reshape(*batch, iters)
+
+
+def dale_sharded(h_rows, bs, iters: int):
+    """Sharded DALE on the cycle graph of the mesh members: member i holds
+    (row_i H, b_i), keeps a full-length q_i and exchanges it with its two
+    ring neighbours each iteration. Returns the members' q_i (M,)."""
+    from .dac import _hop
+    hnorm = [h @ h for h in h_rows]
+    x_part = [h * b / hn for h, b, hn in zip(h_rows, bs, hnorm)]
+    q = list(x_part)
+    for _ in range(iters):
+        left, right = _hop(q, 1), _hop(q, -1)
+        q = []
+        for h, hn, xp, lf, rt in zip(h_rows, hnorm, x_part, left, right):
+            avg = (lf + rt) / 2.0
+            q.append(xp + (avg - h * (h @ avg) / hn))
+    return q

@@ -22,9 +22,9 @@ component; this module makes both explicit:
                     estimate is exact masked aggregation; with mid-run
                     dropout an honest estimate over the survivors (flagged
                     degraded by the caller, guarded by the residual).
-
-The reference's `ring_allsum_masked` is a collective of the sharded
-engine and comes with it (ROADMAP A7).
+  ring_allsum_masked the exact-ring counterpart for the sharded mode's
+                    collectives: dead members contribute zero instead of
+                    stale values.
 
 Convergence failures surface as `ConsensusDiverged` from the serving
 layer, never as silent NaN or stale results. Partition detection is
@@ -133,3 +133,15 @@ def dac_masked_sums(w0: torch.Tensor, A, alive_seq, readout, n_relay,
     W = masked_perrons(A, torch.as_tensor(alive_seq).to(w0.device), eps,
                        edge_seq)
     return perron_sums(w0, W, alive_seq, readout, n_relay)
+
+
+def ring_allsum_masked(ws, alive):
+    """Exact ring sum where dead members contribute zero. `alive` holds
+    each member's 0/1 liveness flag. Dead members still forward ring
+    messages (the ring stays intact) but their own payload is zeroed
+    before it enters the lap. Returns the sum of the live contributions on
+    every member."""
+    from .dac import ring_allsum
+    return ring_allsum([w * torch.as_tensor(a, dtype=w.dtype,
+                                            device=w.device)
+                        for w, a in zip(ws, alive)])

@@ -82,3 +82,19 @@ def jor(H, b, omega, iters: int, q0=None, mask=None):
                       q.expand_as(bm).reshape(-1, M, K), iters)
     q = q.reshape(bm.shape)
     return (q[..., 0] if vec else q), res.T.reshape(*batch, iters)
+
+
+def jor_sharded(h_rows, bs, omega, iters: int):
+    """Sharded JOR: mesh member i holds row_i{H} (M,) and b_i (a scalar
+    tensor) and updates q_i; every iteration floods the q_j to every
+    member (`flooding.flood_sharded`), the strongly complete exchange the
+    paper flags as JOR's cost (Remark 8). Returns the members' q_i."""
+    from .flooding import flood_sharded
+    h_ii = [h[i] for i, h in enumerate(h_rows)]
+    q = [b / d for b, d in zip(bs, h_ii)]
+    for _ in range(iters):
+        q_all = flood_sharded(q)
+        q = [(1 - omega) * qi + (omega / d) * (b - (h @ qa - d * qa[i]))
+             for i, (qi, qa, h, d, b) in enumerate(zip(q, q_all, h_rows,
+                                                        h_ii, bs))]
+    return q

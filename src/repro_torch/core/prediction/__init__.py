@@ -8,8 +8,9 @@
                       consensus + aggregation on precomputed local
                       quantities
 
-Serving front-end: PredictionEngine. The lifecycle API over it is
-`repro_torch.fleet`.
+Serving front-ends: PredictionEngine (every agent on one device) and
+ShardedEngine (the agent axis over an agent mesh). The lifecycle API over
+them is `repro_torch.fleet`.
 """
 from .aggregation import bcm, gpoe, grbcm, npae, poe, rbcm
 from .cbnn import (cbnn_mask, cbnn_mask_cached, cbnn_scores,
@@ -25,6 +26,8 @@ from .decentralized import (dec_bcm, dec_bcm_from_moments, dec_gpoe,
                             dec_rbcm_from_moments)
 from .engine import (FittedExperts, PredictionEngine, fit_experts,
                      map_query_tiles)
+from .sharded import (ShardedEngine, expert_specs, replicated_specs,
+                      shard_experts)
 from .local import (chol_factors, cross_gram, local_moments,
                     local_moments_cached, npae_terms, npae_terms_cached,
                     stream_means)
@@ -42,4 +45,5 @@ __all__ = [
     "dec_npae_from_terms", "dec_npae_star_from_terms",
     "dec_nn_npae_from_terms",
     "FittedExperts", "fit_experts", "map_query_tiles", "PredictionEngine",
+    "ShardedEngine", "expert_specs", "replicated_specs", "shard_experts",
 ]

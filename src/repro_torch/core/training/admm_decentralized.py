@@ -14,8 +14,13 @@ the end, so a run never waits on the host inside the loop.
 
 Every loop takes the `grad_fn` hook of core.training.cache for the local
 NLL gradient (default: the cached-geometry fused path, one nll_grad kernel
-launch per gradient evaluation for the whole fleet). The sharded loops wait
-for the multi-GPU slice (ROADMAP queue A item 7).
+launch per gradient evaluation for the whole fleet).
+
+Sharded mode (`train_dec_apx_gp_sharded`): one agent per member of an
+agent mesh (`launch.mesh.AgentMesh`), the cycle graph of the members, the
+neighbour thetas exchanged by ring hops (`consensus.dac._hop`); each
+member builds its own TrainingCache once, so its gradient is one nll_grad
+launch an iteration on its own device.
 
 Theorem 1 requires kappa_i > L_i^2/m_i^2 - rho*lambda_min(D+A); the paper
 uses kappa_i = 5000, rho = 500 in all experiments and so do we by default.
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ..consensus.dac import _hop, ring_allmax, ring_allsum
 from .cache import local_nll, make_local_grad
 
 
@@ -162,3 +168,78 @@ def train_dec_gapx_gp(log_theta0, Xp_aug, yp_aug, A, rho: float = 500.0,
     return train_dec_apx_gp(log_theta0, Xp_aug, yp_aug, A, rho=rho,
                             kappa=kappa, iters=iters, grad_fn=grad_fn,
                             diag=diag)
+
+
+# ---------------------------------------------------------------------------
+# Sharded mode: one agent per mesh member, ring (cycle) graph, neighbour
+# exchange by ring hops
+# ---------------------------------------------------------------------------
+
+def dec_apx_gp_sharded_step(thetas, ps, local_grads, rho: float = 500.0,
+                            kappa: float = 5000.0):
+    """One DEC-apx-GP round on the ring: thetas and ps hold one (K,) tensor
+    per member, `local_grads` one callable theta -> (K,) per member (closed
+    over that agent's cached geometry). Returns the new (thetas, ps)."""
+    M = len(thetas)
+    left, right = _hop(thetas, 1), _hop(thetas, -1)
+    out_t, out_p = [], []
+    for i in range(M):
+        th = thetas[i]
+        if M == 1:
+            nbr_sum = torch.zeros_like(th)      # self-permute: no neighbours
+        elif M == 2:
+            nbr_sum = left[i]                   # fwd == bwd: ONE neighbour
+        else:
+            nbr_sum = left[i] + right[i]
+        deg = torch.full((1,), float(min(M - 1, 2)), dtype=th.dtype,
+                         device=th.device)
+        g = local_grads[i](th)
+        t2, p2 = dec_apx_update(th[None], ps[i][None], g[None],
+                                nbr_sum[None], deg, rho, kappa)
+        out_t.append(t2[0])
+        out_p.append(p2[0])
+    return out_t, out_p
+
+
+def train_dec_apx_gp_sharded(mesh, axis_name, log_theta0, Xp, yp,
+                             rho: float = 500.0, kappa: float = 5000.0,
+                             iters: int = 100, grad_fn=None):
+    """DEC-apx-GP with agent i on mesh member i (cycle graph over the
+    members). Xp (M, Ni, D), yp (M, Ni) with M the mesh size; each
+    member's data, cache and iterates live on its device, and the grad_fn
+    hook resolves per member (one TrainingCache each, built once).
+
+    Returns (thetas (M, K), info) on member 0's device, with the simulated
+    loops' info["residuals"] series — per iteration the worst deviation
+    from the members' mean theta, both closed by exact ring reductions —
+    and info["p"], the final duals (M, K).
+    """
+    devices = mesh.devices
+    if mesh.shape[axis_name] != Xp.shape[0]:
+        raise ValueError(f"{Xp.shape[0]} agents on a mesh of "
+                         f"{mesh.shape[axis_name]} members: the sharded "
+                         f"loop runs one agent per member")
+    prepare, lgrad = make_local_grad(grad_fn)
+    thetas, ps, grads = [], [], []
+    for i, dev in enumerate(devices):
+        Xl = torch.as_tensor(Xp[i:i + 1]).to(dev)
+        yl = torch.as_tensor(yp[i:i + 1]).to(dev)
+        th, p = _init(torch.as_tensor(log_theta0).to(dev), Xl)
+        thetas.append(th[0])
+        ps.append(p[0])
+        aux = prepare(Xl, yl)
+        grads.append(lambda t, aux=aux: lgrad(t[None], aux)[0])
+    M = len(devices)
+    resids = []
+    for _ in range(iters):
+        thetas, ps = dec_apx_gp_sharded_step(thetas, ps, grads, rho=rho,
+                                             kappa=kappa)
+        mean = [s / M for s in ring_allsum(thetas)]
+        dev_max = ring_allmax([(t - m).abs().amax()
+                               for t, m in zip(thetas, mean)])
+        resids.append(dev_max[0])
+    d0 = devices[0]
+    info = {"residuals": (torch.stack(resids) if resids
+                          else Xp.new_zeros(0)),
+            "p": torch.stack([p.to(d0) for p in ps])}
+    return torch.stack([t.to(d0) for t in thetas]), info

@@ -84,6 +84,11 @@ def local_nll(log_theta, aux, jitter: float = 1e-8):
     return nll(log_theta, *aux, jitter=jitter)
 
 
+def _free_mb(device) -> float:
+    """Free memory of the card that holds `device`, in MB."""
+    return torch.cuda.mem_get_info(device)[0] / 2**20
+
+
 def _per_agent(g):
     """Lift a per-agent gradient (log_theta (K,), Xi, yi) -> (K,) to the
     fleet: one call per agent row, as the reference vmaps it."""
@@ -103,9 +108,13 @@ def make_local_grad(grad_fn=None, jitter: float = 1e-8,
       None            — cached-geometry fused path (the default hot path):
                         `prepare` builds a TrainingCache once per fit,
                         guarded by `cache_limit_mb` (the cache is
-                        O(M D N^2); fleets past the limit fall back to the
-                        autodiff hook with a UserWarning, the reference's
-                        memory policy).
+                        O(M D N^2)). On the CPU fleets past the limit
+                        fall back to the autodiff hook with a
+                        UserWarning, the reference's memory policy. On
+                        the card the limit is at least half the card's
+                        free memory, and a cache past it raises
+                        MemoryError: card tensors take the nll_grad
+                        kernel or nothing.
       "fused"         — cached-geometry path, unguarded.
       "autodiff"      — autograd of `nll` on raw (X, y).
       callable        — custom per-agent gradient (log_theta, Xi, yi) ->
@@ -128,7 +137,17 @@ def make_local_grad(grad_fn=None, jitter: float = 1e-8,
                 n, D = Xp.shape[-2], Xp.shape[-1]
                 m = Xp.shape[0] if Xp.dim() == 3 else 1
                 est_mb = m * D * n * n * Xp.element_size() / 2**20
-                if est_mb > cache_limit_mb:
+                on_card = Xp.device.type != "cpu"
+                limit = max(cache_limit_mb, _free_mb(Xp.device) / 2) \
+                    if on_card else cache_limit_mb
+                if est_mb > limit and on_card:
+                    raise MemoryError(
+                        f"cached-geometry training would hold {est_mb:.0f} "
+                        f"MB of diff^2 stacks (M={m}, N={n}, D={D}) > "
+                        f"{limit:.0f} MB (half the card's free memory); "
+                        f"the card trains through the nll_grad kernel "
+                        f"only — shrink the windows or the fleet")
+                if est_mb > limit:
                     warnings.warn(
                         f"cached-geometry training would hold {est_mb:.0f} "
                         f"MB of diff^2 stacks (M={m}, N={n}, D={D}) > "

@@ -52,9 +52,18 @@ returned only under `allow_degraded=True`, else raised as FleetDegraded
 with the answer attached; `slot_geometry` gives a scheduler its slot
 ladder (the engine chunk up to the method's `max_slot`).
 
+Agent-sharded serving, as in the reference:
+
+    fleet = GPFleet(FleetConfig(sharded=True)).fit(Xp, yp)  # ShardedEngine
+    fleet.shard(mesh=make_agent_mesh(4, devices=("cuda:0",) * 4),
+                routed=True)        # in place; nn_* then route queries
+
+The mesh (`launch.mesh.AgentMesh`) defaults to the visible cards, or to
+the fleet's device alone on the CPU; the `dec-apx-sharded` trainer runs
+on it too.
+
 The fleet runs on `device` (default: cuda; raises when no card is present
-and the caller did not pass device="cpu"). The sharded engine is not
-ported yet (ROADMAP queue A).
+and the caller did not pass device="cpu").
 """
 from __future__ import annotations
 
@@ -72,9 +81,11 @@ from ..core.consensus import (complete_graph, connected_components,
 from ..core.gp import augment, communication_dataset, pack
 from ..core.online import (OnlineExperts, from_batch, join, leave,
                            observe_fleet, refit)
-from ..core.prediction import FittedExperts, PredictionEngine, fit_experts
+from ..core.prediction import (FittedExperts, PredictionEngine,
+                               ShardedEngine, fit_experts)
 from ..core.sparse import SparseExperts, fit_sparse_experts, select_inducing
 from ..device import resolve_device
+from ..launch.mesh import mesh_for
 from ..launch.scheduler import ServingScheduler
 from ..obs import default_registry
 from .config import FleetConfig
@@ -132,11 +143,12 @@ class GPFleet:
     """Config-driven facade over factor caching and serving."""
 
     def __init__(self, config: FleetConfig | None = None, *, A=None,
-                 device=None):
+                 mesh=None, device=None):
         cfg = config if config is not None else FleetConfig()
         validate_config(cfg)
         self.device = resolve_device(device)
         self.config = cfg
+        self.mesh = mesh               # launch.mesh.AgentMesh or None
         self.A = torch.as_tensor(A) if A is not None else _build_graph(cfg)
         if self.A.shape[0] != cfg.num_agents:
             raise ValueError(f"adjacency for {self.A.shape[0]} agents vs "
@@ -175,21 +187,36 @@ class GPFleet:
             else self._online_state.count
 
     @property
-    def engine(self) -> PredictionEngine:
-        """The serving engine (built on first use, dropped on refit)."""
+    def engine(self) -> PredictionEngine | ShardedEngine:
+        """The serving engine (built on first use, dropped on refit and on
+        shard)."""
         if self._engine is None:
             if self.fitted is None:
                 raise RuntimeError("serving needs a fitted fleet — call "
                                    "fit() first")
-            cfg = self.config
-            self._engine = PredictionEngine(
-                self.fitted, self.A, chunk=cfg.chunk,
-                dac_iters=cfg.dac_iters, jor_iters=cfg.jor_iters,
-                dale_iters=cfg.dale_iters, pm_iters=cfg.pm_iters,
-                eta_nn=cfg.eta_nn, npae_jitter=cfg.npae_jitter,
-                fitted_aug=self.fitted_aug, fitted_comm=self.fitted_comm,
-                stream_mean=cfg.stream_mean, device=self.device)
+            self._engine = self._build_engine()
         return self._engine
+
+    def _build_engine(self):
+        cfg = self.config
+        if cfg.sharded:
+            if self.mesh is None:
+                self.mesh = mesh_for(cfg.num_agents, self.device,
+                                     max_devices=cfg.max_shard_devices)
+            return ShardedEngine(self.fitted, self.mesh, chunk=cfg.chunk,
+                                 dac_iters=cfg.dac_iters, eta_nn=cfg.eta_nn,
+                                 consensus=cfg.consensus,
+                                 npae_jitter=cfg.npae_jitter,
+                                 fitted_aug=self.fitted_aug,
+                                 fitted_comm=self.fitted_comm,
+                                 stream_mean=cfg.stream_mean)
+        return PredictionEngine(
+            self.fitted, self.A, chunk=cfg.chunk, dac_iters=cfg.dac_iters,
+            jor_iters=cfg.jor_iters, dale_iters=cfg.dale_iters,
+            pm_iters=cfg.pm_iters, eta_nn=cfg.eta_nn,
+            npae_jitter=cfg.npae_jitter, fitted_aug=self.fitted_aug,
+            fitted_comm=self.fitted_comm, stream_mean=cfg.stream_mean,
+            device=self.device)
 
     def _needs_comm_data(self, train: bool) -> bool:
         """The communication/augmented datasets are built only when
@@ -255,7 +282,7 @@ class GPFleet:
             Xt, yt = (self._comm_data[2:] if spec.needs_augmented_data
                       else (Xp, yp))
             self.log_theta, self.thetas, self.train_info = spec.run(
-                cfg, lt0, Xt, yt, self.A, grad_fn=grad_fn,
+                cfg, lt0, Xt, yt, self.A, mesh=self.mesh, grad_fn=grad_fn,
                 diag=trace is not None)
             if trace is not None:
                 trace.record(cfg.trainer, self.train_info,
@@ -306,8 +333,10 @@ class GPFleet:
                 allow_degraded: bool = False):
         """Serve one query batch -> (mean (Nt,), var (Nt,), info).
 
-        `method` overrides config.method for this call; `cen_*`
-        centralized references pass through to the engine.
+        `method` overrides config.method for this call (under the same
+        capability rules); `cen_*` centralized references pass through to
+        the replicated engine. A routed fleet serves its nn_* methods by
+        CBNN query routing (`ShardedEngine.predict_routed`).
 
         `fault_plan` (chaos.FaultPlan) injects the plan's consensus faults:
         the engine serves over the surviving subgraph and flags the result
@@ -315,14 +344,25 @@ class GPFleet:
         result is returned only under `allow_degraded=True`; otherwise it
         is raised inside a FleetDegraded, so a caller never mistakes a
         partial-fleet answer for a healthy one. Divergence raises
-        ConsensusDiverged either way."""
+        ConsensusDiverged either way; consensus faults serve on the
+        replicated engine only."""
         cfg = self.config
         method = (method if method is not None
                   else cfg.method).replace("-", "_")
-        spec = get_method(method[4:] if method.startswith("cen_")
-                          else method)
-        if not method.startswith("cen_") and (
-                (cfg.sparse_m is not None and not spec.sparse)
+        cen = method.startswith("cen_")
+        spec = get_method(method[4:] if cen else method)
+        if fault_plan is not None and not fault_plan.consensus_free \
+                and cfg.sharded:
+            raise ValueError(
+                "fault plans with consensus faults serve on the replicated "
+                "engine only (the sharded consensus runs on the ring of "
+                "members, which has no degraded mode)")
+        if cen and cfg.sharded:
+            raise ValueError("centralized cen_* references serve on the "
+                             "replicated engine only")
+        if not cen and (
+                (cfg.sharded and not spec.shardable)
+                or (cfg.sparse_m is not None and not spec.sparse)
                 or (spec.family == "sparse" and cfg.sparse_m is None)):
             validate_config(cfg.replace(method=method))   # a clear error
         if spec.needs_augmented_data and self.fitted_aug is None:
@@ -330,7 +370,11 @@ class GPFleet:
                 f"method {method!r} needs the grBCM augmented/"
                 f"communication experts; fit with a grbcm method "
                 f"configured (FleetConfig(method=...)) so they are built")
-        if fault_plan is None:
+        if cfg.routed and method.startswith("nn_"):
+            return self.engine.predict_routed(method, Xs)
+        if fault_plan is None or fault_plan.consensus_free:
+            # a consensus-free plan (stragglers, injected failures) changes
+            # no value: the exact path, on either engine
             return self.engine.predict(method, Xs)
         mean, var, info = self.engine.predict(method, Xs,
                                               fault_plan=fault_plan)
@@ -346,6 +390,20 @@ class GPFleet:
                     f"allow_degraded=True to accept flagged partial-fleet "
                     f"results", info=info, result=(mean, var))
         return mean, var, info
+
+    def shard(self, mesh=None, *, routed: bool | None = None) -> "GPFleet":
+        """Move serving onto the agent-sharded engine (in place): the
+        config's capability rules are checked first; `routed` switches
+        CBNN query routing on or off at the same time. Returns self."""
+        cfg = self.config.replace(
+            sharded=True,
+            routed=self.config.routed if routed is None else routed)
+        validate_config(cfg)
+        self.config = cfg
+        if mesh is not None:
+            self.mesh = mesh
+        self._engine = None
+        return self
 
     def slot_geometry(self, method: str | None = None) -> tuple[int, int]:
         """(align, max_slot) for serving schedulers packing this fleet:
@@ -374,7 +432,7 @@ class GPFleet:
             "last_degraded": self._last_degraded,
         }
         eng = self._engine
-        if eng is not None:
+        if eng is not None and hasattr(eng, "_degraded_total"):
             h["degraded_predictions"] = sum(
                 v for _, v in eng._degraded_total.collect())
             h["diverged_predictions"] = sum(
@@ -476,7 +534,7 @@ class GPFleet:
             else self.config.replace(admm_iters=int(iters))
         self.log_theta, self.thetas, info = spec.run(
             cfg, self.log_theta, state.Xw[:, :n], state.yw[:, :n], self.A,
-            grad_fn=grad_fn)
+            mesh=self.mesh, grad_fn=grad_fn)
         self._swap(refit(state._replace(
             log_theta=self.log_theta.to(state.log_theta.dtype))))
         return info
@@ -484,8 +542,10 @@ class GPFleet:
     def join(self, X_new=None, y_new=None, neighbors=None) -> "GPFleet":
         """One agent joins the streaming fleet (window seeded from X_new /
         y_new); the consensus graph is attached and the engine rewired on
-        the new M."""
+        the new M (on the replicated engine: sharded blocks are fixed at
+        construction)."""
         state = self._require_online("join")
+        self._refuse_sharded_membership()
         self._online_state, self.A = join(state, self.A, X_new, y_new,
                                           neighbors=neighbors)
         self._after_membership_change()
@@ -495,9 +555,16 @@ class GPFleet:
         """Agent `agent` leaves; former neighbors are re-chained so the
         consensus graph stays connected."""
         state = self._require_online("leave")
+        self._refuse_sharded_membership()
         self._online_state, self.A = leave(state, self.A, agent)
         self._after_membership_change()
         return self
+
+    def _refuse_sharded_membership(self):
+        if self.config.sharded:
+            raise ValueError("membership changes serve on the replicated "
+                             "engine (ShardedEngine shards are fixed at "
+                             "construction)")
 
     def _after_membership_change(self):
         self.fitted = self._online_state.to_fitted()
@@ -599,12 +666,13 @@ class GPFleet:
         return tree_unflatten(tree, leaves)
 
     @classmethod
-    def load(cls, ckpt_dir: str, *, config: FleetConfig | None = None,
-             device=None) -> "GPFleet":
+    def load(cls, ckpt_dir: str, *, mesh=None,
+             config: FleetConfig | None = None, device=None) -> "GPFleet":
         """Reconstruct a fitted fleet from a `save()` of either package
         onto `device` (default: cuda): no refitting, the served
         predictions are the saving fleet's. `config` overrides the saved
-        config and is validated like any other."""
+        config (e.g. sharded=True to serve a replicated-saved fleet on
+        `mesh`) and is validated like any other."""
         mpath = os.path.join(ckpt_dir, _FLEET_MANIFEST)
         if not os.path.exists(mpath):
             raise FileNotFoundError(
@@ -620,7 +688,7 @@ class GPFleet:
         dev = resolve_device(device)
         tree = restore(ckpt_dir, cls._template(ckpt_dir, manifest),
                        step=manifest["step"], device=dev)
-        fleet = cls(cfg, A=tree["A"].cpu(), device=dev)
+        fleet = cls(cfg, A=tree["A"].cpu(), mesh=mesh, device=dev)
         fleet.log_theta = tree["log_theta"]
         fleet.thetas = tree["thetas"]
         fleet.fitted = tree["fitted"]

@@ -22,6 +22,17 @@ coalesce ragged requests into fixed-size micro-batches, serve them through
       --method grbcm --trainer dec-gapx --train-iters 5 --agents 4 \
       --per-agent 64
 
+`--sharded` serves the fleet from the agent-sharded engine
+(FleetConfig(sharded=True), `core.prediction.ShardedEngine`): per-agent
+moments member-locally on the agent mesh (`launch.mesh`: the visible
+cards, or the one CPU device with `--device cpu`), cross-agent sums on the
+ring of members. `--routed` (implies `--sharded`) serves the CBNN nn_*
+methods by query routing: each query on the member holding its
+most-correlated experts.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_gp --device cpu \
+      --agents 4 --per-agent 64 --method nn-rbcm --sharded --routed
+
 Every method of the fleet registry serves under `--method` (hyphens or
 underscores), and every centralized reference as `cen_<method>`; the
 grbcm methods and the gapx/dec-gapx trainers draw the grBCM communication
@@ -487,6 +498,13 @@ def main(argv=None):
     ap.add_argument("--observe-every", type=int, default=4,
                     help="fleet-wide observations ingested between "
                          "prediction micro-batches (online mode)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard the fleet over the agent axis of the agent "
+                         "mesh (ShardedEngine; DAC-family methods and "
+                         "npae-sparse)")
+    ap.add_argument("--routed", action="store_true",
+                    help="CBNN query routing on the sharded fleet (nn_* "
+                         "methods; implies --sharded)")
     ap.add_argument("--eta-nn", type=float, default=0.1,
                     help="CBNN participation threshold (paper eq. 39)")
     ap.add_argument("--sparse-m", type=int, default=None, metavar="M",
@@ -511,7 +529,9 @@ def main(argv=None):
                          "config + graph) with GPFleet.save")
     ap.add_argument("--from-checkpoint", default=None, metavar="DIR",
                     help="GPFleet.load a saved fleet and serve it without "
-                         "refitting (build and train flags are ignored)")
+                         "refitting (build and train flags are ignored; "
+                         "--sharded/--routed deployment overrides are "
+                         "honored)")
     ap.add_argument("--metrics-dump", default=None, metavar="PATH",
                     help="at exit, write the Prometheus text dump of the "
                          "metrics registry to PATH")
@@ -583,6 +603,8 @@ def main(argv=None):
                     help="also time the per-call path (the registry's "
                          "legacy_call) on the same micro-batches")
     args = ap.parse_args(argv)
+    if args.routed:
+        args.sharded = True
     if args.train_iters < 0:
         ap.error("--train-iters must be >= 0")
     if args.observe_every < 0:
@@ -623,10 +645,20 @@ def _load(args, ap, device):
         ap.error("--online: this checkpoint was not saved from an online "
                  "fleet (no window state to resume); refit with --online "
                  "--save-fleet")
-    if not method.startswith("cen_"):
+    if method.startswith("cen_"):
+        if fleet.config.sharded or args.sharded:
+            ap.error("centralized cen_* references serve on the replicated "
+                     "engine only")
+    else:
         try:
             fleet.config = fleet.config.replace(method=method)
             validate_config(fleet.config)
+        except ValueError as e:
+            ap.error(str(e))
+    if args.sharded:
+        # deployment overrides are honored, not silently dropped
+        try:
+            fleet.shard(routed=args.routed or None)
         except ValueError as e:
             ap.error(str(e))
     if "grbcm" in method and fleet.fitted_aug is None:
@@ -640,7 +672,7 @@ def _serve(args, ap):
     """Build (or load) the fleet and serve it in the mode the flags
     select."""
     method = args.method or FleetConfig.method
-    if args.online and method.startswith("cen_"):
+    if (args.online or args.sharded) and method.startswith("cen_"):
         ap.error("centralized cen_* references serve on the replicated "
                  "engine only")
     device = resolve_device(args.device)
@@ -666,12 +698,12 @@ def _serve(args, ap):
         _sync(device)
         dtype = fleet.fitted.Xp.dtype
         print(f"fleet: M={fleet.num_agents} agents x "
-              f"Ni={fleet.fitted.Xp.shape[1]} points (replicated, "
+              f"Ni={fleet.fitted.Xp.shape[1]} points ({_mode(fleet)}, "
               f"{str(dtype).removeprefix('torch.')}, {device}); loaded "
               f"from {args.from_checkpoint} (no refit) in "
               f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     else:
-        fleet = _build(args, method, device, gen)
+        fleet = _build(args, method, device, gen, ap)
         if args.save_fleet:
             print(f"fleet saved -> {fleet.save(args.save_fleet)}")
     if args.scheduler:
@@ -680,17 +712,31 @@ def _serve(args, ap):
     _serve_batches(args, fleet, method, gen)
 
 
-def _build(args, method, device, gen):
+def _mode(fleet: GPFleet) -> str:
+    """How the fleet serves: replicated, or sharded over the mesh's
+    members (CBNN-routed)."""
+    if not fleet.config.sharded:
+        return "replicated"
+    return (f"sharded over {fleet.engine.ndev} device(s)"
+            + (", CBNN-routed" if fleet.config.routed else ""))
+
+
+def _build(args, method, device, gen, ap):
     """The synthetic fleet of the flags, fitted (and trained with
     --train-iters)."""
     base = method[4:] if method.startswith("cen_") else method
-    cfg = FleetConfig(num_agents=args.agents, method=base, chunk=args.chunk,
-                      dac_iters=args.dac_iters, eta_nn=args.eta_nn,
-                      stream_mean=not args.no_stream, trainer=args.trainer,
-                      admm_iters=args.train_iters or FleetConfig.admm_iters,
-                      fact_steps=args.train_iters or FleetConfig.fact_steps,
-                      online=args.online, sparse_m=args.sparse_m,
-                      inducing_init=args.inducing_init)
+    try:
+        cfg = FleetConfig(
+            num_agents=args.agents, method=base, chunk=args.chunk,
+            dac_iters=args.dac_iters, eta_nn=args.eta_nn,
+            stream_mean=not args.no_stream, trainer=args.trainer,
+            admm_iters=args.train_iters or FleetConfig.admm_iters,
+            fact_steps=args.train_iters or FleetConfig.fact_steps,
+            sharded=args.sharded, routed=args.routed, online=args.online,
+            sparse_m=args.sparse_m, inducing_init=args.inducing_init)
+        validate_config(cfg)
+    except (ValueError, KeyError) as e:
+        ap.error(str(e))
     t0 = time.perf_counter()
     dtype = getattr(torch, args.dtype)
     Xp, yp = build_data(gen, args.agents, args.per_agent, dtype)
@@ -705,7 +751,7 @@ def _build(args, method, device, gen):
     sparse = (f", sparse m={fleet.fitted.Z.shape[1]}"
               if args.sparse_m is not None else "")
     print(f"fleet: M={args.agents} agents x Ni={args.per_agent} points "
-          f"(replicated{sparse}, {args.dtype}, {device}); {trained}"
+          f"({_mode(fleet)}{sparse}, {args.dtype}, {device}); {trained}"
           f"fitted in {(time.perf_counter() - t0) * 1e3:.1f} ms")
     if args.train_iters:
         theta = torch.exp(fleet.log_theta).tolist()

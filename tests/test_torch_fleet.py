@@ -17,6 +17,7 @@ from repro.fleet import GPFleet as JGPFleet
 from repro_torch.fleet import (METHODS, FleetConfig, GPFleet, get_method,
                                validate_config)
 from repro_torch.launch import serve_gp
+from repro_torch.launch.mesh import make_agent_mesh
 from repro_torch.obs import TraceRecorder
 
 torch.set_num_threads(2)
@@ -93,18 +94,26 @@ def test_fleet_float32_follows_the_inputs(data):
 
 
 def test_fit_with_training_is_not_ported(data):
-    """Training is ported (tests/test_torch_training.py, the sparse
+    """Every trainer is ported (tests/test_torch_training.py, the sparse
     trainers in tests/test_torch_sparse.py, gapx and dec-gapx in
-    tests/test_torch_fleet_methods.py); what is not yet is the sharded
-    loop. The training trace is ported (tests/test_torch_obs.py). The
-    sparse trainers need sparse_m, as the
-    reference's rule says, and train with it; the gapx trainers train on
-    the augmented data."""
+    tests/test_torch_fleet_methods.py, the sharded loop in
+    tests/test_torch_sharded.py). The training trace is ported
+    (tests/test_torch_obs.py). The sharded loop runs one agent per mesh
+    member, so on the CPU fleet's one-member default mesh it refuses a
+    4-agent fleet, as the reference does, and trains on a 4-member mesh.
+    The sparse trainers need sparse_m, as the reference's rule says, and
+    train with it; the gapx trainers train on the augmented data."""
     Xp, yp, _ = data
-    fleet = GPFleet(FleetConfig(trainer="dec-apx-sharded"), device="cpu")
-    with pytest.raises(ValueError, match="not yet ported.*item 7"):
+    fleet = GPFleet(FleetConfig(trainer="dec-apx-sharded", admm_iters=2),
+                    device="cpu")
+    with pytest.raises(ValueError, match="ONE agent per mesh member"):
         fleet.fit(Xp, yp)
     fleet.fit(Xp, yp, train=False)                # serving known theta works
+    fleet = GPFleet(FleetConfig(trainer="dec-apx-sharded", admm_iters=2),
+                    mesh=make_agent_mesh(4, devices=("cpu",) * 4),
+                    device="cpu").fit(Xp, yp, log_theta0=LOG_THETA)
+    assert fleet.thetas.shape == (4, 4)
+    assert bool(torch.isfinite(fleet.predict(data[2])[0]).all())
     for trainer in ("gapx", "dec-gapx"):
         fleet = GPFleet(FleetConfig(trainer=trainer, admm_iters=2),
                         device="cpu").fit(Xp, yp, log_theta0=LOG_THETA)
@@ -135,19 +144,21 @@ def test_fleet_shape_errors(data):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(routed=True), ValueError, "not yet ported"),
+    (dict(routed=True), ValueError, "routed serving runs on the sharded"),
     (dict(method="nn_grbcm", online=True), ValueError, "online-safe"),
     (dict(method="npae-sparse"), ValueError, "sparse_m"),
     (dict(method="nope"), KeyError, "unknown prediction method"),
     (dict(trainer="nope"), KeyError, "unknown trainer"),
-    (dict(sharded=True), ValueError, "item 7"),
+    (dict(sharded=True, method="npae"), ValueError,
+     "not servable on the agent-sharded"),
     (dict(sparse_m=8, online=True), ValueError, "mutually exclusive"),
     (dict(cache_cross=True, sparse_m=8), ValueError, "cache_cross"),
 ])
 def test_validate_config_rejects_what_is_not_ported(kw, err, match):
-    """What is not yet ported, what is unknown, and the reference's rules
-    (grbcm methods are not online-safe; npae_sparse without sparse_m;
-    sparse_m with online or with the cross-Gram cache)."""
+    """What is unknown, and the reference's rules (routed serving needs
+    the sharded fleet; the dense NPAE family does not shard; grbcm methods
+    are not online-safe; npae_sparse without sparse_m; sparse_m with
+    online or with the cross-Gram cache)."""
     with pytest.raises(err, match=match):
         validate_config(FleetConfig(**kw))
     with pytest.raises(err, match=match):
@@ -240,14 +251,15 @@ def test_serve_gp_runs_on_the_cpu(capsys):
 
 
 def test_serve_gp_rejects_training(capsys):
-    """The launcher trains with the ported trainers only, and a positive
-    number of rounds (test_serve_gp_trains_on_the_cpu trains)."""
+    """The launcher trains a positive number of rounds
+    (test_serve_gp_trains_on_the_cpu trains), and dec-apx-sharded on its
+    mesh: the CPU launcher's one-member mesh refuses the 8-agent fleet,
+    as the reference's one-device mesh does."""
     with pytest.raises(SystemExit):
         serve_gp.main(["--device", "cpu", "--train-iters", "-1"])
-    with pytest.raises(SystemExit):
+    with pytest.raises(ValueError, match="ONE agent per mesh member"):
         serve_gp.main(["--device", "cpu", "--trainer", "dec-apx-sharded",
                        "--train-iters", "5"])
-    assert "invalid choice: 'dec-apx-sharded'" in capsys.readouterr().err
 
 
 def test_serve_gp_trains_on_the_cpu(capsys):

@@ -28,7 +28,6 @@ from repro_torch.core.sparse import SparseExperts
 from repro_torch.core.training import train_dec_gapx_gp, train_gapx_gp
 from repro_torch.fleet import (METHODS, TRAINERS, FleetConfig, GPFleet,
                                get_method, get_trainer, validate_config)
-from repro_torch.fleet import registry
 
 torch.set_num_threads(2)
 
@@ -139,14 +138,15 @@ def test_registry_flags_match_reference():
         assert (spec.family, spec.online_safe, spec.needs_augmented_data,
                 spec.sparse) == (ref.family, ref.online_safe,
                                  ref.needs_augmented_data, ref.sparse), name
-    assert set(TRAINERS) == set(J_TRAINERS) - {"dec-apx-sharded"}
+    assert set(TRAINERS) == set(J_TRAINERS)
     for name, spec in TRAINERS.items():
-        assert spec.needs_augmented_data == \
-            J_TRAINERS[name].needs_augmented_data, name
-    with pytest.raises(ValueError, match="not yet ported.*item 7"):
-        get_trainer("dec-apx-sharded")
-    assert registry._LATER_TRAINERS == {
-        "dec-apx-sharded": "ROADMAP queue A item 7 (multi-GPU)"}
+        assert (spec.needs_augmented_data, spec.needs_mesh) == \
+            (J_TRAINERS[name].needs_augmented_data,
+             J_TRAINERS[name].needs_mesh), name
+    assert get_trainer("dec-apx-sharded").needs_mesh
+    for name, spec in METHODS.items():
+        assert (spec.shardable, spec.routable) == \
+            (J_METHODS[name].shardable, J_METHODS[name].routable), name
     assert get_method("nn-grbcm").needs_augmented_data
 
 

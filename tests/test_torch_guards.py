@@ -153,14 +153,17 @@ def test_nll_grad_kernel_input_checks_raise(bad, match):
 
 
 @pytest.mark.parametrize("trainer,item", [
-    ("gapx", None), ("dec-gapx", None), ("dec-apx-sharded", "item 7"),
+    ("gapx", None), ("dec-gapx", None), ("dec-apx-sharded", None),
     ("fact-sparse", None), ("dec-apx-sparse", None)])
 def test_unported_trainers_say_not_yet_ported(trainer, item):
-    """The trainer still to port says so and names its ROADMAP item; the
-    gapx and sparse trainers are ported and registered."""
+    """Every trainer the reference registers is ported and registered (the
+    sharded loop too, with its mesh flag); an unknown one is a KeyError.
+    A trainer still to port would say so and name its ROADMAP item."""
     from repro_torch.fleet import get_trainer
     if item is None:
-        assert get_trainer(trainer).name == trainer
+        spec = get_trainer(trainer)
+        assert spec.name == trainer
+        assert spec.needs_mesh == (trainer == "dec-apx-sharded")
     else:
         with pytest.raises(ValueError, match=f"not yet ported.*{item}"):
             get_trainer(trainer)

@@ -10,6 +10,7 @@ of the other trainers and for the trained fleet's predictions; the float32
 plain version against the Pallas kernel in interpret mode at the tolerance
 tests/test_training_fused.py uses for that kernel.
 """
+import warnings
 from importlib import import_module
 
 import jax
@@ -281,6 +282,28 @@ def test_cache_guard_warns_and_falls_back_like_the_reference():
                                         np.stack([LT0] * 4), Xp, yp)) <= 1e-12
     prepare_forced, _ = make_local_grad("fused", cache_limit_mb=1e-6)
     assert isinstance(prepare_forced(*_t(Xp, yp)), TrainingCache)
+
+
+@pytest.mark.parametrize("free_mb", [1.0, 1e-6])
+def test_cache_guard_on_the_card_takes_the_kernel_or_raises(monkeypatch,
+                                                             free_mb):
+    """Tensors off the CPU never fall back to autodiff: past
+    cache_limit_mb the guard's limit is half the card's free memory, and a
+    cache past that raises (a meta tensor stands in for a card's)."""
+    cache = import_module("repro_torch.core.training.cache")
+    monkeypatch.setattr(cache, "_free_mb", lambda device: free_mb)
+    Xp, yp = _agents(N=20, seed=7)          # a 0.024 MB cache
+    X, y = (t.to("meta") for t in _t(Xp, yp))
+    prepare, _ = make_local_grad(None, cache_limit_mb=1e-6)
+    if free_mb > 0.1:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            aux = prepare(X, y)
+        assert isinstance(aux, TrainingCache)
+        assert aux.d2u.shape == (4, 2, 20, 20)
+    else:
+        with pytest.raises(MemoryError, match="nll_grad kernel only"):
+            prepare(X, y)
 
 
 # -- the trainers ----------------------------------------------------------------

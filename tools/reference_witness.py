@@ -6,7 +6,7 @@ against the reference where it can run.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python3 tools/reference_witness.py \\
         [--per-agent 500,1000,2000] [--seed 0]
-        [--parts c8,gapx,npae,nn_npae,fullgp,c11]
+        [--parts c8,gapx,npae,nn_npae,fullgp,c11,scenario]
 
   c8    DEC-NPAE* (npae_star) on a 4-agent path fleet of one draw of the
         paper's field (true theta, 256 held-out queries): RMSE against
@@ -42,8 +42,16 @@ against the reference where it can run.
         the reference's absolute degraded_tol = 1e-2 is held against.
         The reference runs with jax_enable_x64 off, as JAX runs by
         default: with it on, its degraded DAC fails to trace in float32.
+  scenario  the reference test's tiny chaos mission (tests/test_scenario.py
+        `_TINY` + `_CHAOS`) on the cycle and the complete graph: the
+        reference's run_scenario on its jax.random world and the port's
+        run_scenario (float64, CPU) on its host-drawn world, with the
+        reference's accuracy invariants for each: final RMSE below 0.8 of
+        the first, final NLL below the first, drift-epoch NLL monotone
+        within 0.25; after the last seed a summary line counts the seeds
+        that meet them. --per-agent does not apply; --seed takes a list.
 
-Each (part, size) prints one JSON line. The paper fleet itself is not run
+Each (part, size, seed) prints one JSON line. The paper fleet itself is not run
 here: the reference's NPAE terms hold 16 Gram blocks of 8,100^2 points at
 once (8.4 GB in float64) beside the factors, and its gapx 4 kernel
 matrices of 16,200^2 with their autodiff transients; the card's machine
@@ -62,6 +70,12 @@ TRUE_THETA = ([1.2, 0.3], 1.3, 0.1)
 N_QUERIES = 256
 JOR_COUNTS = (500, 50_000)          # FleetConfig's, NPAE_STAR_JOR_ITERS
 GAPX_KAPPA, GAPX_POINTS, GAPX_ITERS = 20_000.0, 16_200, 3
+SCENARIO_TINY = dict(num_agents=4, method="gpoe", steps=9, warmup_obs=5,
+                     window=14, dac_iters=40, admm_iters=4, drift_every=3,
+                     drift_iters=3, eval_points=24, field_features=96,
+                     queries_per_step=1, query_rows=3, max_slot=8, chunk=8,
+                     dropouts=((1, 2, 6),), straggle_every=3,
+                     straggle_ms=1.0, fail_every=5, edge_loss=0.05)
 
 
 def paper_field(per_agent: int, seed: int):
@@ -296,10 +310,55 @@ def gapx(per_agent: int, seed: int) -> dict:
     return out
 
 
+def scenario(per_agent: int, seed: int) -> dict:
+    import torch
+    from repro.scenario import ScenarioConfig as JConfig
+    from repro.scenario import run_scenario as j_run_scenario
+    from repro_torch.scenario import ScenarioConfig, run_scenario
+    out = {"part": "scenario", "seed": seed}
+    for graph in ("cycle", "complete"):
+        for pkg, cls, run in (
+                ("reference", JConfig, j_run_scenario),
+                ("port", ScenarioConfig,
+                 lambda c: run_scenario(c, device="cpu",
+                                        dtype=torch.float64))):
+            r = run(cls(seed=seed, fault_seed=seed, graph=graph,
+                        **SCENARIO_TINY))
+            rmse, nll = r.curves["rmse"], r.curves["nll"]
+            inv = {"rmse_ratio": rmse[-1] / rmse[0],
+                   "rmse_below_0.8": rmse[-1] < 0.8 * rmse[0],
+                   "nll_falls": nll[-1] < nll[0],
+                   "drift_monotone": all(b <= a + 0.25 for a, b in zip(
+                       r.drift_nll, r.drift_nll[1:]))}
+            inv["all"] = inv["rmse_below_0.8"] and inv["nll_falls"] and \
+                inv["drift_monotone"]
+            out[f"{pkg}_{graph}"] = inv
+    return out
+
+
+def scenario_summary(missions) -> dict:
+    """Per package and graph over the seeds run: the seeds meeting all
+    three invariants, those meeting the RMSE one, and the median final/
+    first RMSE ratio."""
+    import statistics
+    out = {"part": "scenario_summary",
+           "seeds": [m["seed"] for m in missions]}
+    for key in missions[0]:
+        if key in ("part", "seed"):
+            continue
+        runs = [m[key] for m in missions]
+        out[key] = {
+            "all": sum(r["all"] for r in runs),
+            "rmse_below_0.8": sum(r["rmse_below_0.8"] for r in runs),
+            "median_rmse_ratio": statistics.median(r["rmse_ratio"]
+                                                   for r in runs)}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--per-agent", default="500,1000,2000")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", default="0")
     ap.add_argument("--parts", default="c8,gapx")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
@@ -308,10 +367,18 @@ def main(argv=None) -> int:
     jax.config.update("jax_enable_x64", True)
     torch.set_num_threads(4)
     parts = {"c8": c8, "gapx": gapx, "npae": npae, "nn_npae": nn_npae,
-             "fullgp": fullgp, "c11": c11}
-    for part in args.parts.split(","):
-        for n in (int(v) for v in args.per_agent.split(",")):
-            print(json.dumps(parts[part](n, args.seed)), flush=True)
+             "fullgp": fullgp, "c11": c11, "scenario": scenario}
+    sizes = [int(v) for v in args.per_agent.split(",")]
+    missions = []
+    for seed in (int(v) for v in args.seed.split(",")):
+        for part in args.parts.split(","):
+            for n in sizes[:1] if part == "scenario" else sizes:
+                out = parts[part](n, seed)
+                if part == "scenario":
+                    missions.append(out)
+                print(json.dumps(out), flush=True)
+    if missions:
+        print(json.dumps(scenario_summary(missions)), flush=True)
     return 0
 
 
