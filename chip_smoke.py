@@ -238,6 +238,25 @@ Phases, one JSON line each:
            tolerance, and prefill + one decode step against the parallel
            forward over 2,049 tokens; it reports prefill ms, decode ms per
            step, tok/s, peak device memory and the first tokens.
+  lm_train LM training (after the profile phase, whose LM it frees):
+           internlm2-1.8b at full width through the port's train launcher
+           (launch.train.run) at the reference's train_4k shape, 4,096
+           tokens a sequence with remat, the batch of 256 cut to 2: (a) 3
+           Adam steps (lr 1e-4), checking finite losses and flash_attention
+           launched 2 x 24 times a step (forward and recompute), reporting
+           ms per step, tokens/s and peak memory; (b) one gradient with the
+           kernel and one with its plain version swapped in, every
+           parameter tensor within LM_GRAD_TOL and the loss within
+           LM_LOGIT_TOL; the kernel's launch with and without its
+           log-sum-exp and the ported backward timed at one layer's
+           attention, with their share of a step; (c) the paper's DEC-ADMM
+           (--consensus dec_admm) over two agents on the card at full
+           depth, 2 steps, reporting losses and disagreement; (d) the
+           reduced internlm2 under DEC-ADMM over 4 agents and under
+           Adafactor, 3 steps each on the card and on the CPU from one set
+           of parameters and one batch stream, held to each other
+           (LM_TWIN_LOSS_TOL, LM_TWIN_PARAM_TOL). With --profile it traces
+           one training step.
 
 The kernels phase also holds flash_attention to its plain version at the
 prefill shape (4, 16/8, 2,048, 128, causal; timed, with PyTorch's
@@ -245,7 +264,11 @@ scaled_dot_product_attention as the library yardstick, which the port
 never calls), a sliding window of 512 whose first key blocks are wholly
 masked for the late queries, bf16, ragged S = 1,000, the decode shape
 (Sq 1, Sk 2,081), D = 64 and D = 32, and the edges of the kernel's
-128-row query blocks and 64-key tiles, each bitwise repeatable.
+128-row query blocks and 64-key tiles, each bitwise repeatable; at each
+case its log-sum-exp output against the plain logsumexp, and the
+gradients of FlashAttentionFunction (the kernel forward, the ported
+chunked backward) against autograd through the plain version. rbf_gram's
+sparse-fit panel is traced for its device time.
 
 With --profile it then traces one 256-query batch of the serving path
 and the serving path's dense fit, one ADMM iteration of the training
@@ -254,7 +277,8 @@ sparse fit of the 100k-per-agent fleet, one served rBCM batch of the
 sparse paper fleet, one npae, nn_npae and grbcm tile of the methods
 phase's fleet, and one LM prefill and one decode step with
 torch.profiler, and prints device time by kernel, the GEMMs' share and
-the device's busy share.
+the device's busy share; the lm_train phase then traces one full training
+step.
 
 Then it prints the kernel table as one JSON object, the card's name and
 power limit as nvidia-smi reports them, and last
@@ -267,6 +291,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -431,6 +456,47 @@ FLASH_CASES = [(4, 16, 8, 2048, 2048, 128, True, None, "float32"),
 # another order (the tolerance the reference's tests hold its Pallas
 # kernel to), bf16 outputs rounded to 8 bits
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the kernel's log-sum-exp against the plain logsumexp, max |error| / (1 +
+# |lse|): float32 sums of the same scores in another order
+FLASH_LSE_TOL = 1e-5
+# dq, dk, dv of FlashAttentionFunction (the kernel forward, the ported
+# backward) against autograd through the plain version, max |error|
+# relative to max |plain gradient|: one backward's float32 rounding fed
+# the kernel's out and lse, or bf16 gradients rounded to 8 bits
+FLASH_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+# LM training (lm_train phase): internlm2-1.8b at its published widths and
+# depth through the port's train launcher at the reference's train_4k
+# shape (4,096 tokens a sequence, remat), its batch of 256 cut to 2 so that
+# one card holds the step, Adam at pick_optimizer's default lr
+LM_TRAIN_BATCH, LM_TRAIN_STEPS, LM_TRAIN_LR = 2, 3, 1e-4
+LM_TRAIN_ARGS = ["--arch", LM_ARCH, "--shape", "train_4k", "--batch",
+                 str(LM_TRAIN_BATCH), "--lr", str(LM_TRAIN_LR),
+                 "--log-every", "1"]
+# the paper's DEC-ADMM over two agents on the card (rho and kappa the
+# launcher's defaults: 0.1 and 1 / lr)
+LM_FED_AGENTS, LM_FED_STEPS = 2, 2
+# the full-width gradient with the kernel against the same step with the
+# plain version swapped in, per parameter tensor max |error| / max |plain
+# gradient|: the kernel's float32 attention (split TF32, ex2.approx: about
+# 1e-6 of its output) carried through 24 layers and their recompute. A CPU
+# rehearsal with the kernel's arithmetic emulated
+# (flash_attention_split_tf32) at 24 layers, d 256, 4,096 tokens gave
+# 3.5e-6 at worst (wk); the card at full width gives 7.3e-5 (wq), and
+# tools/lm_grad_witness.py puts the kernel path 8.8e-5 and the plain path
+# 3.1e-5 from float64 (PERF.md §6). The gate is four times the
+# card's reading, below the 5.2e-4 that the reference's delta = dout . out
+# gives with this kernel forward
+LM_GRAD_TOL = 3e-4
+# the reduced internlm2 (2 layers, d 256) card against CPU, from one set
+# of initial parameters and one numpy batch stream: DEC-ADMM over 4
+# agents and Adafactor, 3 steps each
+LM_TWIN_AGENTS, LM_TWIN_STEPS, LM_TWIN_BATCH, LM_TWIN_SEQ = 4, 3, 2, 128
+LM_TWIN_LR = 3e-3                     # the reference launcher's default
+LM_TWIN_LOSS_TOL = 1e-5               # relative, every step
+LM_TWIN_PARAM_TOL = 1e-5              # DEC-ADMM, relative to max |theta|
+# one attention layer of the training step (B, H, KH, S, S, D), timed
+LM_TRAIN_ATTENTION = (2, 16, 8, 4096, 4096, 128)
 
 
 # methods phase: CBNN, grBCM and dense NPAE on the paper fleet (float32,
@@ -861,11 +927,16 @@ def flash_bound_ms(B: int, H: int, KH: int, Sq: int, Sk: int, D: int,
 def flash_attention_cases(ctx, sms):
     """flash_attention against its plain version on the card at
     FLASH_CASES (random normal q, k, v), max |error| within FLASH_TOL of
-    max |plain output|, bitwise repeatable and finite; the prefill shape,
-    float32 and bf16, timed against the plain version, PyTorch's
-    scaled_dot_product_attention (causal, GQA) and the bound."""
+    max |plain output|, bitwise repeatable and finite; its log-sum-exp
+    output against the plain logsumexp (FLASH_LSE_TOL) with the output
+    bitwise unchanged; FlashAttentionFunction's dq, dk, dv against
+    autograd through the plain version (FLASH_GRAD_TOL); the prefill
+    shape, float32 and bf16, timed against the plain version, PyTorch's
+    scaled_dot_product_attention (causal, GQA) and the bound, and the
+    launch with the log-sum-exp on."""
     import torch
     from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import ops
     dev = torch.device(DEVICE)
     gen = torch.Generator(dev).manual_seed(ctx["seed"] + 7)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -892,6 +963,37 @@ def flash_attention_cases(ctx, sms):
                                  f"version, is not finite or not "
                                  f"repeatable at {case}")
         del want
+        # the training forward: its log-sum-exp, and the output with the
+        # lse on bitwise the output without
+        out_lse, lse = F.flash_attention_lse(q, k, v, causal, window)
+        _, want_lse = F.flash_attention_plain_lse(q, k, v, causal, window)
+        case["max_rel_err_lse"] = float(((lse - want_lse).abs()
+                                         / (1 + want_lse.abs())).max())
+        case["lse_out_bitwise_equal"] = bool(torch.equal(out_lse, got))
+        del out_lse, lse, want_lse
+        # FlashAttentionFunction's gradients against autograd through the
+        # plain version
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        grads = torch.autograd.grad(
+            ops.flash_attention(*qkv, causal=causal, window=window), qkv,
+            dout)
+        want_grads = torch.autograd.grad(
+            F.flash_attention_plain(*qkv, causal, window), qkv, dout)
+        case["max_rel_err_grads"] = max(
+            float((g.float() - w.float()).abs().max())
+            / float(w.float().abs().max())
+            for g, w in zip(grads, want_grads))
+        case["grads_finite"] = all(bool(torch.isfinite(g).all())
+                                   for g in grads)
+        del qkv, dout, grads, want_grads
+        if not (case["max_rel_err_lse"] <= FLASH_LSE_TOL
+                and case["lse_out_bitwise_equal"]
+                and case["max_rel_err_grads"] <= FLASH_GRAD_TOL[dt]
+                and case["grads_finite"]):
+            raise AssertionError(f"flash_attention's log-sum-exp or its "
+                                 f"Function's gradients disagree with the "
+                                 f"plain version at {case}")
         if (B, H, KH, Sq, Sk, D, causal, window) == FLASH_CASES[0][:8]:
             # the library yardstick: one PyTorch call, never made by the
             # port
@@ -903,6 +1005,9 @@ def flash_attention_cases(ctx, sms):
                 lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20)
             case["library_call"] = ("scaled_dot_product_attention("
                                     "is_causal=True, enable_gqa=True)")
+            # the training forward's launch, log-sum-exp written
+            case["lse_ms"] = cuda_ms(
+                lambda: F.flash_attention_lse(q, k, v, causal, window), 20)
             (case["bound_ms"], case["bound_by"], case["fp32_fma_bound_ms"],
              case["bf16_tensor_core_bound_ms"]) = flash_bound_ms(
                  B, H, KH, Sq, Sk, D, causal, window, dt, sms)
@@ -1140,6 +1245,16 @@ def rbf_gram_cases(ctx, sms):
             case["composed_library_ms"] = cuda_ms(composed, 20)
             case["bound_ms"], case["bound_by"] = rbf_gram_bound_ms(
                 M, m, valid, width, D, sms)
+            # device time from a trace of back-to-back calls, beside the
+            # events time (which includes the host's launch gaps)
+            trace = _profiled(lambda: [RG.rbf_gram(z, x, params, False, col0,
+                                                   width)
+                                       for _ in range(RBF_MATVEC_TRACED)],
+                              "rbf_gram")
+            case["device_ms"] = (trace["rbf_gram_device_ms"]
+                                 / RBF_MATVEC_TRACED)
+            case["device_launches_per_call"] = (
+                trace["rbf_gram_device_launches"] / RBF_MATVEC_TRACED)
             ctx["rbf_gram"] = case
         cases.append(case)
     return cases
@@ -4222,6 +4337,307 @@ def phase_lm(ctx):
             "first_tokens": tokens[:, :8].tolist()}
 
 
+def _param_kind(name: str) -> str:
+    """A parameter's name without its layer index ("blocks.3.attn.wq" ->
+    "attn.wq"), to report the worst error of each kind over the layers."""
+    parts = name.split(".")
+    return ".".join(parts[2:]) if parts[0] == "blocks" else name
+
+
+def _twin_states(models):
+    """Each model's parameters on the CPU, by name."""
+    return [{n: p.detach().cpu() for n, p in m.named_parameters()}
+            for m in models]
+
+
+def _twin_gate(name, card, cpu, tol, lr_bound=None):
+    """Max |card - CPU| of each parameter relative to its max |CPU value|,
+    the worst over the models; with `lr_bound` also the worst absolute
+    difference, held to it. Returns (worst relative, worst absolute)."""
+    rel, absolute = 0.0, 0.0
+    for a, b in zip(card, cpu):
+        for n, want in b.items():
+            d = float((a[n] - want).abs().max())
+            absolute = max(absolute, d)
+            rel = max(rel, d / max(float(want.abs().max()), 1e-30))
+    if tol is not None and not rel <= tol:
+        raise AssertionError(f"{name}: card vs CPU parameters {rel} > {tol}")
+    if lr_bound is not None and not absolute <= lr_bound:
+        raise AssertionError(f"{name}: card vs CPU parameters differ by "
+                             f"{absolute} > {lr_bound}")
+    return rel, absolute
+
+
+def lm_twins(ctx):
+    """The reduced internlm2 card against the CPU (part d of lm_train):
+    one set of initial parameters (drawn on the CPU) and one numpy batch
+    stream per agent, DEC-ADMM over LM_TWIN_AGENTS agents and Adafactor,
+    LM_TWIN_STEPS steps each on both devices. DEC-ADMM's update is linear
+    in the gradient: losses within LM_TWIN_LOSS_TOL and parameters within
+    LM_TWIN_PARAM_TOL. Adafactor's first step is about lr sign(g), so an
+    entry whose gradient is below the rounding moves by up to 2 lr: its
+    losses are held to LM_TWIN_LOSS_TOL and its parameters to 2 lr a
+    step, the relative difference reported."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import federated
+    from repro_torch.data import MarkovLMData
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.launch import steps
+    from repro_torch.models import LM
+    from repro_torch.optim import adafactor
+    dev = torch.device(DEVICE)
+    cfg = get_config(LM_ARCH).reduced()
+    init = LM(cfg, device="cpu",
+              generator=torch.Generator().manual_seed(ctx["seed"]))
+    datas = [MarkovLMData(cfg.vocab_size, seed=0, agent=a)
+             for a in range(LM_TWIN_AGENTS)]
+    draws = [[d.batch(LM_TWIN_BATCH, LM_TWIN_SEQ) for d in datas]
+             for _ in range(LM_TWIN_STEPS)]
+
+    def batch(draw, device):
+        return {"tokens": torch.from_numpy(draw[0]).to(device, torch.int64),
+                "labels": torch.from_numpy(draw[1]).to(device, torch.int64)}
+
+    runs = {}
+    for key, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        fed = steps.make_federated_train_step(
+            cfg, n_agents=LM_TWIN_AGENTS, rho=0.1, kappa=1 / LM_TWIN_LR)
+        models = [copy.deepcopy(init).to(device)
+                  for _ in range(LM_TWIN_AGENTS)]
+        duals = federated.dec_admm_init([dict(m.named_parameters())
+                                         for m in models])
+        F.reset_launches()
+        fed_losses = []
+        for draw in draws:
+            duals, loss = fed(models, duals, [batch(d, device) for d in draw])
+            fed_losses.append(float(loss))
+        opt = adafactor(LM_TWIN_LR)
+        single = copy.deepcopy(init).to(device)
+        state = opt.init(dict(single.named_parameters()))
+        train_step = steps.make_train_step(cfg, opt)
+        ada_losses = []
+        for draw in draws:
+            state, loss, _ = train_step(single, state, batch(draw[0], device))
+            ada_losses.append(float(loss))
+        runs[key] = {"fed_losses": fed_losses,
+                             "fed": _twin_states(models),
+                             "ada_losses": ada_losses,
+                             "ada": _twin_states([single]),
+                             "launches": F.launches}
+    card, cpu = runs["card"], runs["cpu"]
+    want_launches = (LM_TWIN_AGENTS + 1) * LM_TWIN_STEPS * cfg.num_layers
+    if card["launches"] != want_launches:
+        raise AssertionError(f"twins: {card['launches']} flash_attention "
+                             f"launches on the card, not {want_launches}")
+    loss_err = max(abs(a - b) / abs(b) for key in ("fed_losses",
+                                                  "ada_losses")
+                   for a, b in zip(card[key], cpu[key]))
+    if not loss_err <= LM_TWIN_LOSS_TOL:
+        raise AssertionError(f"twins: card vs CPU losses {loss_err} > "
+                             f"{LM_TWIN_LOSS_TOL}")
+    fed_rel, fed_abs = _twin_gate("DEC-ADMM", card["fed"], cpu["fed"],
+                                  LM_TWIN_PARAM_TOL)
+    ada_rel, ada_abs = _twin_gate("Adafactor", card["ada"], cpu["ada"], None,
+                                  2 * LM_TWIN_LR * LM_TWIN_STEPS)
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "agents": LM_TWIN_AGENTS,
+            "steps": LM_TWIN_STEPS, "batch": LM_TWIN_BATCH,
+            "seq": LM_TWIN_SEQ, "lr": LM_TWIN_LR,
+            "dec_admm_losses_card": card["fed_losses"],
+            "dec_admm_losses_cpu": cpu["fed_losses"],
+            "adafactor_losses_card": card["ada_losses"],
+            "adafactor_losses_cpu": cpu["ada_losses"],
+            "max_rel_err_losses": loss_err, "loss_tol": LM_TWIN_LOSS_TOL,
+            "dec_admm_max_rel_err_params": fed_rel,
+            "dec_admm_max_abs_err_params": fed_abs,
+            "param_tol": LM_TWIN_PARAM_TOL,
+            "adafactor_max_rel_err_params": ada_rel,
+            "adafactor_max_abs_err_params": ada_abs,
+            "flash_launches_card": card["launches"]}
+
+
+def lm_attention_timing(warm_step_ms, layers):
+    """One attention layer of the training step (LM_TRAIN_ATTENTION,
+    float32, causal) on the card: the kernel's launch without and with
+    its log-sum-exp, and the ported backward, by CUDA events; and their
+    share of a warm step (forward and recompute launch the kernel,
+    `layers` backward passes)."""
+    import torch
+    from repro_torch.kernels import flash_attention as F
+    B, H, KH, Sq, Sk, D = LM_TRAIN_ATTENTION
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(11)
+    q = torch.randn(B, H, Sq, D, generator=gen, device=dev)
+    k, v = (torch.randn(B, KH, Sk, D, generator=gen, device=dev)
+            for _ in "kv")
+    dout = torch.randn(B, H, Sq, D, generator=gen, device=dev)
+    _, lse = F.flash_attention_lse(q, k, v)
+    fwd = cuda_ms(lambda: F.flash_attention(q, k, v), 10)
+    fwd_lse = cuda_ms(lambda: F.flash_attention_lse(q, k, v), 10)
+    bwd = cuda_ms(lambda: F.flash_attention_bwd(q, k, v, lse, dout, True,
+                                                None, None, F.BWD_CHUNK),
+                  3, warmup=1)
+    return {"shape": list(LM_TRAIN_ATTENTION), "kernel_ms": fwd,
+            "kernel_lse_ms": fwd_lse, "plain_backward_ms": bwd,
+            "kernel_share_of_step": 2 * layers * fwd_lse / warm_step_ms,
+            "backward_share_of_step": layers * bwd / warm_step_ms}
+
+
+def phase_lm_train(ctx):
+    """LM training at full width: (a) the allreduce trainer through the
+    launcher, (b) the gradient with the kernel against the plain version,
+    (f) with --profile one traced step, the attention's times and shares,
+    (c) DEC-ADMM over two agents, (d) the reduced twins."""
+    import torch
+    from repro_torch.data import MarkovLMData
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm
+    from repro_torch.models.lm import param_count
+    from repro_torch.optim import adam
+    dev = torch.device(DEVICE)
+    ctx.pop("lm", None)                 # the serving model: its phases ran
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)     # earlier phases' fleets
+    common = LM_TRAIN_ARGS + ["--seed", str(ctx["seed"]), "--device",
+                              DEVICE]
+
+    # (a) the trainer, counts reset just before, read just after
+    torch.cuda.reset_peak_memory_stats(dev)
+    F.reset_launches()
+    res = train.run(train.parse_args(common + ["--steps",
+                                               str(LM_TRAIN_STEPS)]))
+    launches = F.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg, losses, step_s = res["cfg"], res["losses"], res["step_s"]
+    L = cfg.num_layers
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses are not finite: {losses}")
+    if res["flash_launches"] != [2 * L] * LM_TRAIN_STEPS or \
+            launches != 2 * L * LM_TRAIN_STEPS:
+        raise AssertionError(f"flash_attention launched {launches} times, "
+                             f"{res['flash_launches']} a step, not "
+                             f"2 x {L} a step")
+    ctx["launches_by_path"]["flash_attention"]["lm_train"] = launches
+    warm_s = sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    tokens = res["tokens_per_step"]
+    seq = tokens // LM_TRAIN_BATCH
+    out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+           "parameters": param_count(cfg), "dtype": "float32",
+           "remat": cfg.remat_policy if cfg.remat else None,
+           "tokens_per_step": tokens, "seq": seq,
+           "memory_held_by_earlier_phases_bytes": held,
+           "allreduce": {
+               "optimizer": "adam", "losses": losses,
+               "step_ms": [1e3 * t for t in step_s],
+               "warm_ms_per_step": 1e3 * warm_s,
+               "tokens_per_s": tokens / warm_s,
+               "peak_memory_bytes": peak - held,
+               "flash_launches_per_step": res["flash_launches"]}}
+
+    # (b) one gradient with the kernel, one with the plain version
+    model = res["models"][0]
+    del res
+    batch = train.make_batch(MarkovLMData(cfg.vocab_size, seed=1),
+                             LM_TRAIN_BATCH, seq, dev)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    grads, loss_of, activations = {}, {}, {}
+    for name, attention in (("kernel", None), ("plain", plain_attention)):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the loss alone: the metrics' ce would keep the graph, and with
+        # it the checkpointed blocks and their parameters, alive
+        loss = lm.loss_fn(cfg, model, batch, attention=attention)[0]
+        loss.backward()
+        torch.cuda.synchronize()
+        activations[name] = (torch.cuda.max_memory_allocated(dev) - base
+                             - param_bytes)
+        loss_of[name] = float(loss.detach())
+        grads[name] = {n: p.grad for n, p in model.named_parameters()}
+        del loss
+    model.zero_grad(set_to_none=True)
+    worst = {}
+    for n, want in grads["plain"].items():
+        got = grads["kernel"][n]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{n}: the kernel path's gradient is not "
+                                 f"finite")
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        kind = _param_kind(n)
+        worst[kind] = max(worst.get(kind, 0.0), err)
+    del grads
+    loss_err = abs(loss_of["kernel"] - loss_of["plain"]) / \
+        abs(loss_of["plain"])
+    out["gradient_check"] = {
+        "loss_kernel": loss_of["kernel"], "loss_plain": loss_of["plain"],
+        "max_rel_err_loss": loss_err, "logit_tol": LM_LOGIT_TOL,
+        "grad_tol": LM_GRAD_TOL, "max_rel_err_grad_by_kind": worst,
+        "activation_peak_bytes": activations}
+    if not (max(worst.values()) <= LM_GRAD_TOL and loss_err <= LM_LOGIT_TOL):
+        raise AssertionError(f"the kernel path's gradient or loss disagrees "
+                             f"with the plain version's: {worst}, "
+                             f"{loss_err}")
+
+    # (f) one traced step, the attention's times and shares
+    if ctx.get("profile"):
+        opt = adam(LM_TRAIN_LR)
+        state = opt.init(dict(model.named_parameters()))
+        step = steps.make_train_step(cfg, opt)
+        out["lm_train_step"] = _profiled(lambda: step(model, state, batch),
+                                         "flash_fwd")
+        del state, step
+    del model, batch
+    torch.cuda.empty_cache()
+    out["attention"] = lm_attention_timing(1e3 * warm_s, L)
+    torch.cuda.empty_cache()
+
+    # (c) DEC-ADMM over two agents on the card at full depth: two agents'
+    # parameters, duals and gradients (45 GB) and one backward's
+    # activations fit beside the earlier phases' fleets
+    free = torch.cuda.mem_get_info(dev)[0]
+    allocated = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    F.reset_launches()
+    fed = train.run(train.parse_args(
+        common + ["--steps", str(LM_FED_STEPS), "--consensus", "dec_admm",
+                  "--agents", str(LM_FED_AGENTS)]))
+    fed_launches = F.launches
+    fed_peak = torch.cuda.max_memory_allocated(dev)
+    ctx["launches_by_path"]["flash_attention"]["lm_train_dec_admm"] = \
+        fed_launches
+    want = LM_FED_AGENTS * 2 * L * LM_FED_STEPS
+    dis = fed["disagreement"]
+    if fed_launches != want or not all(math.isfinite(x)
+                                       for x in fed["losses"]) \
+            or not all(d is not None and math.isfinite(d) and d > 0
+                       for d in dis):
+        raise AssertionError(f"DEC-ADMM: {fed_launches} launches (want "
+                             f"{want}), losses {fed['losses']}, "
+                             f"disagreement {dis}")
+    fed_warm = fed["step_s"][-1]
+    out["dec_admm"] = {
+        "agents": LM_FED_AGENTS, "layers": L, "free_bytes_before": free,
+        "allocated_bytes_before": allocated, "losses": fed["losses"],
+        "disagreement": dis, "step_ms": [1e3 * t for t in fed["step_s"]],
+        "tokens_per_s": fed["tokens_per_step"] / fed_warm,
+        "peak_memory_bytes": fed_peak - held,
+        "flash_launches_per_step": fed["flash_launches"]}
+    del fed
+    torch.cuda.empty_cache()
+
+    # (d) the reduced twins, card against CPU
+    out["twins"] = lm_twins(ctx)
+    return out
+
+
 def _profiled(fn, port_kernel):
     """Device time by kernel over one call of `fn` (after a warm-up), the
     port kernel's device time and launches, the matrix products' device
@@ -4344,9 +4760,10 @@ def main(argv=None) -> int:
         return 1
 
     card = card_line()
-    ctx = {"seed": args.seed, "launches": {},
+    ctx = {"seed": args.seed, "launches": {}, "profile": args.profile,
            "launches_by_path": {"rbf_matvec": {}, "nll_grad": {},
-                                "rbf_gram": {}, "cholupdate": {}}}
+                                "rbf_gram": {}, "cholupdate": {},
+                                "flash_attention": {}}}
     failed = []
     phases = [("build", phase_build), ("kernels", phase_kernels),
               ("serve", phase_serve), ("fullgp", phase_fullgp),
@@ -4358,6 +4775,7 @@ def main(argv=None) -> int:
               ("lm", phase_lm)]
     if args.profile:
         phases.append(("profile", phase_profile))
+    phases.append(("lm_train", phase_lm_train))
     for name, fn in phases:
         try:
             out = fn(ctx)
@@ -4391,7 +4809,8 @@ def main(argv=None) -> int:
             "library_ms": k.get("library_ms"),
             "launches_by_path": {main_path[name]: ctx["launches"][name],
                                  **ctx["launches_by_path"].get(name, {})},
-            **({"device_ms": k["device_ms"]} if "device_ms" in k else {})})
+            **{key: k[key] for key in ("device_ms", "lse_ms")
+               if key in k}})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,7 +12,8 @@
   flash_attention.py
                   launch wrapper of csrc/flash_attention.cu (replaces the
                   Pallas kernel repro/kernels/flash_attention.py:
-                  flash_attention_pallas)
+                  flash_attention_pallas), and FlashAttentionFunction
+                  with the plain backward of repro/kernels/flash_jnp.py
   ops.py          public ops with the reference's signatures
   _build.py       nvcc build of csrc/*.cu and the ctypes loader
 

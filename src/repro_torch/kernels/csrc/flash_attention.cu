@@ -7,7 +7,12 @@
 // key timeline (q_pos = i + Sk - Sq, so Sq <= Sk), causal keeps
 // k_pos <= q_pos, a window w keeps k_pos > q_pos - w. q (B, H, Sq, D),
 // k and v (B, KH, Sk, D) with g = H / KH, float32 or bfloat16, contiguous;
-// o (B, H, Sq, D) in q's type. Everything is computed in float32.
+// o (B, H, Sq, D) in q's type. Everything is computed in float32. With a
+// non-null lse (B, H, Sq) float32 it also writes each row's log-sum-exp
+// of its admitted scaled scores, ln sum_j exp(scale q . k_j), which the
+// training backward (kernels/flash_attention.py: flash_attention_bwd, a
+// port of repro/kernels/flash_jnp.py:_flash_bwd) recomputes p from; a
+// null lse (serving) writes nothing more.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_pallas (body `_flash_kernel`, products at its two
@@ -90,6 +95,7 @@ constexpr int kWarps = kBQ / 16;         // 16 query rows a warp
 constexpr int kThreads = 32 * kWarps;
 constexpr int kNT = kBK / 8;             // 8-key n-tiles of a score tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D, typename T>
 struct Tile {
@@ -250,8 +256,9 @@ __device__ __forceinline__ void stage_q(float* Qs, const T* src, int valid) {
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, Tile<D, T>::kMinBlocks)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int H, int KH, int Sq,
-          int Sk, int causal, int window, float qmul) {
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int H, int KH, int Sq, int Sk, int causal,
+          int window, float qmul) {
   using Sh = Tile<D, T>;
   constexpr int NO = D / 8;                // output n-tiles a warp
   constexpr int KV = kBK * Sh::KS;
@@ -470,6 +477,12 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     const int row = q0 + 16 * warp + g + 8 * r;
     if (row >= Sq) continue;
+    // the row's running max m is in the kernel's log2 units (scores
+    // scaled by qmul = scale log2 e) and lt = sum 2^(s - m): the natural
+    // log-sum-exp is (m + log2 lt) ln 2; one lane of the row's four
+    // writes it
+    if (lse != nullptr && t == 0)
+      lse[(size_t)(b * H + h) * Sq + row] = (m[r] + log2f(lt)) * kLn2;
     const float inv = 1.f / lt;
     T* orow = o + ((size_t)(b * H + h) * Sq + row) * D + 4 * t;
 #pragma unroll
@@ -484,9 +497,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KH, int Sq, int Sk, int causal, int window,
-           float qmul, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* lse, int B, int H, int KH, int Sq, int Sk, int causal,
+           int window, float qmul, cudaStream_t stream) {
   const size_t smem = Tile<D, T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -495,19 +508,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_fwd<D, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KH, Sq, Sk, causal,
-      window, qmul);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, Sq, Sk,
+      causal, window, qmul);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int H, int KH, int Sq, int Sk, int causal, int window,
-             float qmul, cudaStream_t stream) {
+             float* lse, int B, int H, int KH, int Sq, int Sk, int causal,
+             int window, float qmul, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<32, T>(q, k, v, o, B, H, KH, Sq, Sk, causal, window, qmul, stream);
-    case 64: return launch<64, T>(q, k, v, o, B, H, KH, Sq, Sk, causal, window, qmul, stream);
-    case 128: return launch<128, T>(q, k, v, o, B, H, KH, Sq, Sk, causal, window, qmul, stream);
+    case 32: return launch<32, T>(q, k, v, o, lse, B, H, KH, Sq, Sk, causal, window, qmul, stream);
+    case 64: return launch<64, T>(q, k, v, o, lse, B, H, KH, Sq, Sk, causal, window, qmul, stream);
+    case 128: return launch<128, T>(q, k, v, o, lse, B, H, KH, Sq, Sk, causal, window, qmul, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -523,21 +536,22 @@ int flash_attention_supports_dim(int D) {
 
 // q (B, H, Sq, D), k and v (B, KH, Sk, D), o (B, H, Sq, D), contiguous on
 // the current device, 16-byte aligned, all float32 (bf16 == 0) or all
-// bfloat16 (bf16 == 1). window <= 0 means no window. Returns the CUDA
-// error code of the launch (0 on success).
+// bfloat16 (bf16 == 1); lse null or (B, H, Sq) float32, contiguous.
+// window <= 0 means no window. Returns the CUDA error code of the launch
+// (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int H, int KH, int Sq, int Sk,
-                           int D, int bf16, int causal, int window,
-                           float scale, cudaStream_t stream) {
+                           void* o, float* lse, int B, int H, int KH,
+                           int Sq, int Sk, int D, int bf16, int causal,
+                           int window, float scale, cudaStream_t stream) {
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || Sq < 1 || Sq > Sk ||
       !flash_attention_supports_dim(D) || (long long)B * H > 0x7fffffff ||
       (Sq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   const float qmul = scale * kLog2e;
-  return bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, o, B, H, KH, Sq, Sk,
-                                        causal, window, qmul, stream)
-              : dispatch<float>(D, q, k, v, o, B, H, KH, Sq, Sk, causal,
-                                window, qmul, stream);
+  return bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, o, lse, B, H, KH, Sq,
+                                        Sk, causal, window, qmul, stream)
+              : dispatch<float>(D, q, k, v, o, lse, B, H, KH, Sq, Sk,
+                                causal, window, qmul, stream);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -22,6 +22,18 @@ bfloat16 inputs, head dimension 32, 64 or 128) or raises: there is no
 fallback to the plain version on the card. `launches` counts kernel
 launches, so a run can show that its path went through the kernel.
 
+Training goes through `FlashAttentionFunction`, the counterpart of the
+reference's `jax.custom_vjp` in `repro/kernels/flash_jnp.py` (the
+reference has no backward Pallas kernel). Its forward is the kernel on a
+CUDA tensor, which then also writes each row's log-sum-exp, and
+`flash_attention_plain_lse` on the CPU; it saves (q, k, v, lse), and its
+backward is `flash_attention_bwd`, a port of `flash_jnp._flash_bwd` in
+plain PyTorch that recomputes the scores chunk by chunk, on both
+devices. The kernel's launch path refuses an input that requires grad
+while grad mode is on: the kernel writes its output through ctypes, out
+of autograd's sight, so a gradient can reach it only through the
+Function.
+
 The kernel runs both products on the tensor cores in split TF32: a float32
 x is hi + lo with hi = tf32_rna(x), lo = tf32_rna(x - hi), and a product
 is lo hi' + hi lo' + hi hi' (three TF32 passes, float32 accuracy).
@@ -30,11 +42,13 @@ arithmetic in plain PyTorch for the tests; nothing else calls them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -82,13 +96,9 @@ def mask(Sq: int, Sk: int, causal: bool, window, device=None):
     return ok
 
 
-def flash_attention_plain(q, k, v, causal: bool = True, window=None,
-                          scale=None):
-    """Plain PyTorch version of the kernel: float32 scores, masked softmax,
-    product with v, cast to q's dtype. GQA groups the g query heads of a
-    kv head instead of repeating k and v; it materializes the
-    (B, H, Sq, Sk) scores."""
-    check_shapes(q, k, v, window)
+def _plain_scores(q, k, causal, window, scale):
+    """The masked float32 scores (B, KH, g, Sq, Sk) of the plain version,
+    -inf where the mask admits no key."""
     B, H, Sq, D = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     g = H // KH
@@ -97,8 +107,36 @@ def flash_attention_plain(q, k, v, causal: bool = True, window=None,
     s = (qg @ k.to(torch.float32).transpose(-1, -2) * scale) \
         .view(B, KH, g, Sq, Sk)
     s.masked_fill_(~mask(Sq, Sk, causal, window, q.device), float("-inf"))
+    return s
+
+
+def _plain_out(s, q, v):
+    """softmax(s) v in float32, cast to q's dtype (B, H, Sq, D)."""
+    B, KH, g, Sq, Sk = s.shape
     w = torch.softmax(s, dim=-1).view(B, KH, g * Sq, Sk)
-    return (w @ v.to(torch.float32)).view(B, H, Sq, D).to(q.dtype)
+    return (w @ v.to(torch.float32)).view(q.shape).to(q.dtype)
+
+
+def flash_attention_plain(q, k, v, causal: bool = True, window=None,
+                          scale=None):
+    """Plain PyTorch version of the kernel: float32 scores, masked softmax,
+    product with v, cast to q's dtype. GQA groups the g query heads of a
+    kv head instead of repeating k and v; it materializes the
+    (B, H, Sq, Sk) scores."""
+    check_shapes(q, k, v, window)
+    return _plain_out(_plain_scores(q, k, causal, window, scale), q, v)
+
+
+def flash_attention_plain_lse(q, k, v, causal: bool = True, window=None,
+                              scale=None):
+    """`flash_attention_plain` and each row's log-sum-exp of its admitted
+    scaled scores: (out (B, H, Sq, D) in q's dtype, lse (B, H, Sq)
+    float32), the plain version of the kernel's lse output and the
+    counterpart of `flash_jnp._flash_fwd_impl`'s (out, lse)."""
+    check_shapes(q, k, v, window)
+    s = _plain_scores(q, k, causal, window, scale)
+    lse = torch.logsumexp(s, dim=-1).reshape(q.shape[:3])
+    return _plain_out(s, q, v), lse
 
 
 def tf32_rna(x):
@@ -175,8 +213,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("flash_attention")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32,
-        ctypes.c_float, ptr]
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
+        i32, ctypes.c_float, ptr]
     lib.flash_attention_launch.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -210,27 +248,40 @@ def _check(q, k, v, window):
                              f"16-byte aligned")
 
 
-def _launch(q, k, v, causal, window, scale):
+def _launch(q, k, v, causal, window, scale, with_lse: bool = False):
+    """The kernel's output, and with `with_lse` also its (B, H, Sq) float32
+    log-sum-exp. Raises on inputs that require grad while grad mode is on:
+    the output would carry no gradient path (FlashAttentionFunction is the
+    way to differentiate through the kernel)."""
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention kernel: an input requires grad and grad mode "
+            "is on, but the kernel's output would have no gradient path; "
+            "differentiate through FlashAttentionFunction "
+            "(kernels.ops.flash_attention routes there)")
     _check(q, k, v, window)
     B, H, Sq, D = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     scale = D ** -0.5 if scale is None else float(scale)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            KH, Sq, Sk, D, int(q.dtype == torch.bfloat16), int(bool(causal)),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, KH, Sq, Sk, D,
+            int(q.dtype == torch.bfloat16), int(bool(causal)),
             0 if window is None else int(window), scale, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{lib.flash_attention_error_string(rc).decode()}")
     launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 def flash_attention(q, k, v, causal: bool = True, window=None, scale=None):
@@ -243,3 +294,139 @@ def flash_attention(q, k, v, causal: bool = True, window=None, scale=None):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window, scale)
     return _launch(q, k, v, causal, window, scale)
+
+
+def flash_attention_lse(q, k, v, causal: bool = True, window=None,
+                        scale=None):
+    """(out, lse): `flash_attention` and each row's log-sum-exp (B, H, Sq)
+    float32 in natural log. The plain version on the CPU, the kernel (one
+    launch, its lse output on) on a CUDA device."""
+    if q.device.type == "cpu":
+        return flash_attention_plain_lse(q, k, v, causal, window, scale)
+    return _launch(q, k, v, causal, window, scale, with_lse=True)
+
+
+#: keys a chunk of the training backward: the reference's op hands its
+#: chunked path the largest divisor of Sk up to 1,024; this backward takes
+#: a ragged last chunk, so it keeps 1,024 at every Sk
+BWD_CHUNK = 1024
+
+
+@contextlib.contextmanager
+def _full_float32():
+    """float32 matrix products in full float32 (TF32 off) on the card."""
+    keep = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = keep
+
+
+def flash_attention_bwd(q, k, v, lse, dout, causal: bool = True,
+                        window=None, scale=None, chunk: int = 1024):
+    """(dq, dk, dv) of the attention at (q, k, v) for the output gradient
+    `dout`, from the forward's row log-sum-exp `lse` (B, H, Sq) float32:
+    a port of `repro/kernels/flash_jnp.py:_flash_bwd` in plain PyTorch,
+    on any device.
+
+    For each chunk of `chunk` keys the scores s = scale q . k are
+    recomputed, p = exp(s - lse), dp = dout v, ds = p (dp - delta) scale,
+    dq += ds k, dk = ds^T q and dv = p^T dout, all in float32 with TF32
+    off. One change from the reference: delta = sum_j p_j dp_j is summed
+    over the recomputed p in a first pass over the chunks (as autograd's
+    softmax backward forms it), where the reference takes sum_d dout *
+    out. The two are equal when out = p v; the reference's forward and
+    backward share their arithmetic, but the kernel's forward rounds
+    differently (split TF32, ex2.approx) from this recompute, and at
+    internlm2-1.8b's full width that mismatch, amplified by the keys'
+    common component in sum_j ds_j k_j, took the wq and wk gradients
+    5.2e-4 (of their max) from float64 against 7.0e-5 with the recomputed
+    delta (PERF.md §6). The g query heads of a kv head are grouped
+    as rows of one product, so dk and dv come out summed over the GQA
+    group. The last chunk may be ragged (the reference's chunked path
+    reads a shifted slice there, ROADMAP C13; its op only passes divisors
+    of Sk). Query rows that no key of a chunk admits are left out of that
+    chunk's products: their p is exactly 0, so they add nothing.
+    Returns dq in q's dtype, dk and dv in k's and v's."""
+    check_shapes(q, k, v, window)
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    g = H // KH
+    sc = D ** -0.5 if scale is None else float(scale)
+    chunk = max(1, min(int(chunk), Sk))
+    off = Sk - Sq                      # right alignment: q_pos = i + off
+    f32 = torch.float32
+    q5 = q.to(f32).reshape(B, KH, g, Sq, D)
+    do5 = dout.to(f32).reshape(B, KH, g, Sq, D)
+    lse5 = lse.to(f32).reshape(B, KH, g, Sq)
+    kf, vf = k.to(f32), v.to(f32)
+    ok_all = mask(Sq, Sk, causal, window, q.device)
+
+    def chunks():
+        """(key range, row range, the rows' q and dout, the keys' k and v,
+        the dp and p of the block) for every chunk that some row admits."""
+        for c0 in range(0, Sk, chunk):
+            c1 = min(c0 + chunk, Sk)
+            # the query rows [r0, r1) that admit a key of [c0, c1)
+            r0 = max(0, c0 - off) if causal else 0
+            r1 = Sq if window is None else \
+                max(0, min(Sq, c1 - 1 + int(window) - off))
+            if r0 >= r1:
+                continue
+            R, C = r1 - r0, c1 - c0
+            qs = q5[:, :, :, r0:r1].reshape(B, KH, g * R, D)
+            dos = do5[:, :, :, r0:r1].reshape(B, KH, g * R, D)
+            kc, vc = kf[:, :, c0:c1], vf[:, :, c0:c1]
+            s = (qs @ kc.transpose(-1, -2)).mul_(sc).view(B, KH, g, R, C)
+            s.masked_fill_(~ok_all[r0:r1, c0:c1], float("-inf"))
+            p = s.sub_(lse5[:, :, :, r0:r1, None]).exp_() \
+                .view(B, KH, g * R, C)
+            yield (c0, c1, r0, r1, qs, dos, kc, vc,
+                   dos @ vc.transpose(-1, -2), p)
+
+    with _full_float32():
+        delta5 = torch.zeros_like(lse5)
+        for _, _, r0, r1, _, _, _, _, dp, p in chunks():
+            delta5[:, :, :, r0:r1] += dp.mul_(p).sum(-1).view(
+                B, KH, g, r1 - r0)
+        dq5 = torch.zeros_like(q5)
+        dk = torch.zeros((B, KH, Sk, D), dtype=f32, device=q.device)
+        dv = torch.zeros_like(dk)
+        for c0, c1, r0, r1, qs, dos, kc, vc, dp, p in chunks():
+            R, C = r1 - r0, c1 - c0
+            ds = dp.view(B, KH, g, R, C).sub_(delta5[:, :, :, r0:r1, None]) \
+                .view(B, KH, g * R, C).mul_(p).mul_(sc)
+            dq5[:, :, :, r0:r1] += (ds @ kc).view(B, KH, g, R, D)
+            dk[:, :, c0:c1] = ds.transpose(-1, -2) @ qs
+            dv[:, :, c0:c1] = p.transpose(-1, -2) @ dos
+            del ds, dp, p
+    return (dq5.view(B, H, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention that autograd differentiates: the counterpart of the
+    reference's `flash_attention_jnp` custom VJP.
+
+    apply(q, k, v, causal, window, scale, chunk) -> out. The forward is
+    `flash_attention_lse` (the kernel on a CUDA tensor, counted in
+    `launches`; the plain version on the CPU) and saves (q, k, v, lse)
+    (the reference also saves out, which `flash_attention_bwd` does not
+    read); the backward is `flash_attention_bwd` with `chunk` keys a
+    chunk. Under activation checkpointing the forward runs again in the
+    backward and saves the replay's own lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, chunk):
+        out, lse = flash_attention_lse(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.args = (causal, window, scale, chunk)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None

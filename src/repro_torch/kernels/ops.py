@@ -190,7 +190,19 @@ def flash_attention(q, k, v, causal: bool = True, window=None, scale=None):
     options (`use_pallas`, `interpret`, block sizes): the tensor's device
     decides. A CPU tensor takes the plain version; a CUDA tensor goes to
     the hand-written kernel, made contiguous here, which masks its own
-    ragged edges (the reference's op picks divisor block sizes instead)."""
+    ragged edges (the reference's op picks divisor block sizes instead).
+
+    With grad mode on and an input that requires grad, it goes through
+    `FlashAttentionFunction` (the kernel, with its log-sum-exp output, or
+    the plain version forward; the ported chunked backward over chunks of
+    `BWD_CHUNK` keys), as the reference's op differentiates through
+    `flash_attention_jnp`. Otherwise (serving) no log-sum-exp is
+    written."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _flash.FlashAttentionFunction.apply(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal, window,
+            scale, _flash.BWD_CHUNK)
     if q.device.type == "cpu":
         return _flash.flash_attention_plain(q, k, v, causal, window, scale)
     return _flash.flash_attention(q.contiguous(), k.contiguous(),

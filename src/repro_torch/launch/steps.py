@@ -1,16 +1,193 @@
-"""Prefill and decode steps of the decoder-only LM (counterpart of the
-serving half of repro.launch.steps).
+"""Train, federated, prefill and decode steps of the decoder-only LM
+(counterpart of repro.launch.steps).
 
 The reference's steps take the parameter pytree as their first argument;
-here the parameters live in the `LM` module, which takes its place. Both
-steps run under `torch.no_grad()`. The train, federated and
-speculative step builders come with LM training (ROADMAP A11b).
+here the parameters live in the `LM` module, which takes its place, and
+a train step updates them in place. The reference's spec builders
+(`param_structs`, `param_specs`, `batch_structs`, `cache_structs`,
+`build`) shard through `launch/sharding.py` and come with the LM's
+sharding (ROADMAP A7b); the encoder-decoder loss with A11c.
+
+The paper's technique enters through the federated step: one LM per
+agent, each on its agent mesh member's device, trained by the
+generalized DEC-apx-GP update (core/federated.py, eq. 34).
 """
 from __future__ import annotations
 
 import torch
 
+from ..core import federated
+from ..models import lm
 from ..models.lm import check_supported
+from ..optim import adafactor, adam
+
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4_096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32_768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32_768, batch=128),
+    "long_500k": dict(kind="decode", seq=524_288, batch=1, long=True),
+}
+
+# long_500k gate: sub-quadratic archs run as-is; dense archs run the
+# sliding-window variant; whisper (enc-dec audio) skips.
+LONG_OK_NATIVE = {"jamba-v0.1-52b", "xlstm-350m"}
+LONG_SKIP = {"whisper-small"}
+LONG_WINDOW = 8_192
+
+# gradient-accumulation factor for train_4k in the reference's pod
+# deployment (its saved-residual memory control)
+MICROBATCH = {
+    "dbrx-132b": 8,
+    "llama4-maverick-400b-a17b": 8,
+    "internvl2-76b": 16,
+    "jamba-v0.1-52b": 4,
+    "granite-3-8b": 4,
+    "phi3-medium-14b": 4,
+    "chatglm3-6b": 2,
+    "whisper-small": 8,
+}
+
+
+def shape_supported(cfg, shape_name: str) -> bool:
+    if shape_name == "long_500k" and cfg.name in LONG_SKIP:
+        return False
+    return True
+
+
+def cfg_for_shape(cfg, shape_name: str):
+    """Per-shape config adjustments (window variant, remat for training)."""
+    if shape_name == "train_4k":
+        cfg = cfg.with_overrides(remat=True)
+    if shape_name == "long_500k" and cfg.name not in LONG_OK_NATIVE:
+        cfg = cfg.with_overrides(window=LONG_WINDOW)
+    if cfg.encdec and shape_name in ("decode_32k", "long_500k", "prefill_32k"):
+        seq = SHAPES[shape_name]["seq"]
+        if cfg.max_seq < seq + 1:
+            cfg = cfg.with_overrides(max_seq=seq + 1)
+    return cfg
+
+
+def pick_optimizer(cfg, lr=1e-4):
+    """(optimizer, name): Adafactor for llama4 (its float32 Adam state
+    does not fit the reference's pod), Adam otherwise."""
+    if cfg.name.startswith("llama4"):
+        return adafactor(lr), "adafactor"
+    return adam(lr), "adam"
+
+
+def _detached(metrics):
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(cfg, optimizer, microbatch: int = 1):
+    """train_step(model, opt_state, batch, attention=None) -> (opt_state,
+    loss, metrics): the gradient of `lm.loss_fn` over the model's
+    parameters, `optimizer`'s update applied to them in place.
+
+    microbatch > 1 accumulates the gradient over that many equal slices
+    of the batch in float32 (each slice's gradient / microbatch), as the
+    reference's scan does; the loss is then the slices' mean and metrics
+    are {}. `attention` replaces ops.flash_attention in every layer."""
+    check_supported(cfg)
+
+    def train_step(model, opt_state, batch, attention=None):
+        params = dict(model.named_parameters())
+        model.zero_grad(set_to_none=True)
+        if microbatch == 1:
+            loss, metrics = lm.loss_fn(cfg, model, batch,
+                                       attention=attention)
+            loss.backward()
+            grads = {n: p.grad for n, p in params.items()}
+            loss, metrics = loss.detach(), _detached(metrics)
+        else:
+            B = batch["tokens"].shape[0]
+            if B % microbatch:
+                raise ValueError(f"batch {B} is not a multiple of "
+                                 f"microbatch {microbatch}")
+            mb = B // microbatch
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for n, p in params.items()}
+            losses = []
+            for i in range(microbatch):
+                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                model.zero_grad(set_to_none=True)
+                li, _ = lm.loss_fn(cfg, model, part, attention=attention)
+                li.backward()
+                with torch.no_grad():
+                    for n, p in params.items():
+                        grads[n] += p.grad.to(torch.float32) / microbatch
+                losses.append(li.detach())
+            loss, metrics = torch.stack(losses).mean(), {}
+        model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            del grads
+            for n, p in params.items():
+                p.add_(updates[n])
+        return opt_state, loss, metrics
+
+    return train_step
+
+
+def make_federated_train_step(cfg, *, n_agents: int, rho: float = 1.0,
+                              kappa: float = 10.0, exchange: bool = True):
+    """step(models, duals, batches, attention=None) -> (duals, loss): one
+    generalized DEC-apx-GP round (eq. 34) over `n_agents` agents.
+
+    models: one LM per agent, each on its agent mesh member's device (its
+    parameters are the agent's opinion theta_i, updated in place); duals:
+    one dict name -> tensor per agent (`federated.dec_admm_init`), updated
+    in place and returned; batches: one batch dict per agent on its
+    device. Each agent's local gradient stays on its device; the update
+    exchanges parameters with the ring neighbours only
+    (`federated.dec_admm_leaf`, the reference's eq. 34a/b; a one-agent
+    ring is its own neighbour, as the reference's roll of a length-1
+    axis). loss is the agents' mean loss, on the first agent's device.
+
+    exchange=False is the local-only variant: no messages and no dual
+    update, theta_i -= g_i / (kappa + 2 |N| rho), the same step size."""
+    check_supported(cfg)
+    deg = 2.0 if n_agents > 2 else 1.0
+
+    def step(models, duals, batches, attention=None):
+        if not len(models) == len(duals) == len(batches) == n_agents:
+            raise ValueError(f"want {n_agents} models, duals and batches, "
+                             f"got {len(models)}, {len(duals)}, "
+                             f"{len(batches)}")
+        losses = []
+        for model, batch in zip(models, batches):
+            model.zero_grad(set_to_none=True)
+            loss = lm.loss_fn(cfg, model, batch, attention=attention)[0]
+            loss.backward()
+            losses.append(loss.detach())
+        params = [dict(m.named_parameters()) for m in models]
+        with torch.no_grad():
+            for key in params[0]:
+                ths = [p[key] for p in params]
+                gs = [p[key].grad.to(p[key].dtype) for p in params]
+                if exchange:
+                    nbr, d = ((ths, 1.0) if n_agents == 1
+                              else federated.neighbor_sum(ths))
+                    new = [federated.dec_admm_leaf(th, du[key], g, s, d, rho,
+                                                   kappa)
+                           for th, du, g, s in zip(ths, duals, gs, nbr)]
+                    del nbr
+                else:
+                    step_size = kappa + 2.0 * deg * rho
+                    new = [((th - g / step_size).to(th.dtype), du[key])
+                           for th, du, g in zip(ths, duals, gs)]
+                for th, du, (th_next, p_next) in zip(ths, duals, new):
+                    th.copy_(th_next)
+                    if exchange:
+                        du[key].copy_(p_next)
+                del new, gs
+            for model in models:
+                model.zero_grad(set_to_none=True)
+        dev = losses[0].device
+        return duals, torch.stack([l.to(dev) for l in losses]).mean()
+
+    return step
 
 
 def make_prefill_step(cfg, max_len: int):

@@ -1,6 +1,6 @@
 """Language-model scaffolding of the port (counterpart of repro.models):
-the dense transformer family, served through the hand-written
-flash_attention kernel."""
+the dense transformer family, served and trained through the
+hand-written flash_attention kernel."""
 from .config import ArchConfig
 from . import attention, common, convert, lm
 from .lm import LM

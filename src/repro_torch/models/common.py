@@ -1,5 +1,5 @@
-"""Shared model components: norms, RoPE, MLPs (counterpart of
-repro.models.common).
+"""Shared model components: norms, RoPE, MLPs, the token cross-entropy
+(counterpart of repro.models.common).
 
 The reference's ParamDef DSL (shapes, logical axes, initializers) maps
 parameters to mesh axes; the port keeps parameters in `nn.Module`s and
@@ -81,3 +81,18 @@ def swiglu(x, wg, wu, wd):
 
 def gelu_mlp(x, w1, w2):
     return gelu(x @ w1) @ w2
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in float32 over the positions whose label
+    is >= 0 (and, with `mask`, whose mask is > 0): logits (..., V), labels
+    (...) int. Returns a 0-d float32 tensor; 0 when no position counts."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.clamp(min=0).to(torch.int64)[..., None])[..., 0]
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & (mask > 0)
+    nll = (lse - ll) * valid
+    return nll.sum() / valid.sum().clamp(min=1)

@@ -3,9 +3,10 @@ architecture families (dense / moe / ssm / hybrid / audio / vlm).
 
 A copy of the reference's `repro.models.config.ArchConfig`, field for
 field, so a configuration means the same in both packages. The port's
-models run the dense transformer family (models/lm.py); `use_pallas`,
-`remat` and `remat_policy` are kept and ignored: a tensor's device decides
-whether attention runs the CUDA kernel or its plain version."""
+models run the dense transformer family (models/lm.py); `use_pallas` is
+kept and ignored (a tensor's device decides whether attention runs the
+CUDA kernel or its plain version); `remat` and `remat_policy` checkpoint
+each block in training (models/lm.py)."""
 from __future__ import annotations
 
 import dataclasses

@@ -71,7 +71,28 @@ def lm_params_from_jax(cfg, tree, device=None) -> LM:
 @torch.no_grad()
 def lm_params_to_jax(model: LM) -> dict:
     """The reference's parameter tree of `model`, as numpy arrays."""
-    def arr(t):
+    return lm_tree_to_jax(model, dict(model.named_parameters()))
+
+
+@torch.no_grad()
+def lm_tree_to_jax(model: LM, named: dict) -> dict:
+    """Per-parameter tensors of `model` in the reference's stacked layout,
+    as numpy arrays: `named` maps each name of `model.named_parameters()`
+    to a tensor of that parameter's shape (the parameters themselves, a
+    gradient, an optimizer's moment), e.g. {n: p.grad for n, p in
+    model.named_parameters()} for the tree `jax.grad` gives."""
+    by_param = {id(p): n for n, p in model.named_parameters()}
+    if set(named) != set(by_param.values()):
+        raise ValueError(f"want one tensor per parameter of the model; "
+                         f"missing {sorted(set(by_param.values()) - set(named))}"
+                         f", unknown {sorted(set(named) - set(by_param.values()))}")
+
+    def arr(param):
+        t = named[by_param[id(param)]]
+        if tuple(t.shape) != tuple(param.shape):
+            raise ValueError(f"{by_param[id(param)]}: shape "
+                             f"{tuple(t.shape)} is not the parameter's "
+                             f"{tuple(param.shape)}")
         return t.detach().cpu().numpy()
 
     tree = {"embed": arr(model.embed),

@@ -3,25 +3,37 @@ repro.models.lm).
 
     model = LM(cfg, device=..., generator=torch.Generator().manual_seed(0))
     logits, aux, cache = model(tokens, cache=..., logits_slice=1)
+    loss, aux = loss_fn(cfg, model, batch)
 
 The reference stacks its layers for `jax.lax.scan` (parameters carry
 leading (n_groups, 1) axes); here they are an `nn.ModuleList` of blocks,
 one per layer, and models/convert.py maps one layout onto the other.
 Each block is pre-norm: x + attn(rmsnorm(x)), then x + mlp(rmsnorm(x)).
 
+With `cfg.remat` a training forward (grad mode on, no cache) runs each
+block under `torch.utils.checkpoint` (non-reentrant), as the reference
+wraps each layer group in `jax.checkpoint`: the block's activations are
+recomputed in the backward, its attention kernel launched again.
+`remat_policy="dots"` keeps the outputs of the unbatched matrix products
+(the reference's `dots_with_no_batch_dims_saveable`) and recomputes the
+rest.
+
 Not yet ported: the MoE FFN, the jamba and xLSTM block families, the
-whisper encoder-decoder and the VLM patch prefix (ROADMAP A11c); LM
-training (ROADMAP A11b). `act_sharding.constrain` is a no-op without a
-mesh in the reference and belongs to the multi-GPU work (ROADMAP A7).
+whisper encoder-decoder and the VLM patch prefix (ROADMAP A11c).
+`act_sharding.constrain` is a no-op without a mesh in the reference and
+belongs to the multi-GPU work (ROADMAP A7b).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from ..device import resolve_device
 from .attention import Attention, init_cache
-from .common import RMSNorm, gelu_mlp, init_scale, swiglu
+from .common import RMSNorm, cross_entropy, gelu_mlp, init_scale, swiglu
 
 NOT_PORTED = "not yet ported (ROADMAP A11c)"
 
@@ -39,6 +51,17 @@ def check_supported(cfg) -> None:
     if cfg.vis_tokens:
         raise NotImplementedError(f"{cfg.name}: the VLM patch prefix is "
                                   f"{NOT_PORTED}")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of `remat_policy="dots"`: save the
+    output of a matrix product without batch dimensions (a plain `mm`, or
+    the one-batch `bmm` that einsum makes of "bsd,dhk->bshk"), recompute
+    everything else."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class MLP(nn.Module):
@@ -135,7 +158,8 @@ class LM(nn.Module):
         k/v are written in place and the returned cache carries index + S.
         aux is the reference's MoE auxiliary loss, 0 for a dense model.
         `attention` replaces ops.flash_attention in every layer (same
-        signature)."""
+        signature). With `cfg.remat`, grad mode on and no cache, each
+        block runs under activation checkpointing."""
         x = self.embed[tokens]
         B, S, _ = x.shape
         if positions is None:
@@ -144,9 +168,19 @@ class LM(nn.Module):
                 .expand(B, S)
         layers = cache["layers"] if cache is not None else \
             [None] * len(self.blocks)
+        remat = (self.cfg.remat_policy if self.cfg.remat and cache is None
+                 and torch.is_grad_enabled() else None)
+        context_fn = (functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+            if remat == "dots" else _ckpt.noop_context_fn)
         new_layers = []
         for blk, layer_cache in zip(self.blocks, layers):
-            x, c = blk(x, positions, layer_cache, attention)
+            if remat:
+                x, c = _ckpt.checkpoint(blk, x, positions, None, attention,
+                                        use_reentrant=False,
+                                        context_fn=context_fn)
+            else:
+                x, c = blk(x, positions, layer_cache, attention)
             new_layers.append(c)
         x = self.final_norm(x)
         if logits_slice:
@@ -165,6 +199,19 @@ class LM(nn.Module):
                                       self.embed.dtype, self.device)
                            for _ in self.blocks],
                 "index": 0}
+
+
+def loss_fn(cfg, model, batch, aux_weight: float = 0.01, attention=None):
+    """(loss, {"ce", "aux"}) of `model` on batch = dict(tokens (B, S),
+    labels (B, S)); labels < 0 are ignored. Counterpart of the reference's
+    `lm.loss_fn(cfg, params, batch)`, the module standing where the
+    parameters stand (its own cfg decides the remat, as the reference's
+    `cfg` does); `attention` replaces ops.flash_attention in every layer,
+    as in `LM.forward`. The VLM prefix is not yet ported (A11c)."""
+    check_supported(cfg)
+    logits, aux, _ = model(batch["tokens"], attention=attention)
+    ce = cross_entropy(logits, batch["labels"])
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def param_count(cfg) -> int:

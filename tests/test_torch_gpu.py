@@ -3,8 +3,9 @@ cholupdate, rbf_gram and flash_attention kernels against their plain
 versions, their dispatch, the serving path with and without rbf_matvec,
 degraded (fault-plan) serving and the serving scheduler on the card,
 training through nll_grad, the streaming fleet through cholupdate, the
-sparse fleet's fit through rbf_gram, and LM serving through
-flash_attention.
+sparse fleet's fit through rbf_gram, LM serving through
+flash_attention, and LM training through its log-sum-exp output and the
+ported backward (FlashAttentionFunction).
 
 Every test here is marked `gpu` and skips (in its fixture) without a card.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -774,3 +775,136 @@ def test_serve_lm_on_the_card(cuda, capsys):
                 "--prompt-len", "64", "--gen", "4"])
     out = capsys.readouterr().out
     assert "on cuda" in out and "2 in the prefill (2 layers)" in out
+
+
+# the training path's attention (B, H, KH, Sq, Sk, D, causal, window,
+# dtype): GQA at head_dim 128, a window, Sq < Sk ragged, not causal, bf16
+FLASH_GRAD_CASES = [
+    (2, 16, 8, 512, 512, 128, True, None, torch.float32),
+    (1, 8, 2, 300, 300, 64, True, 100, torch.float32),
+    (1, 4, 2, 129, 300, 64, True, None, torch.float32),
+    (1, 4, 4, 191, 191, 32, False, None, torch.float32),
+    (2, 8, 4, 256, 256, 128, True, None, torch.bfloat16)]
+# gradients, max |error| relative to max |plain gradient|: the same
+# backward on both sides, fed the kernel's out and lse (float32 rounding)
+# or bf16 outputs rounded to 8 bits
+FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(cuda, B, H, KH, Sq, Sk, D, dtype, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=cuda).to(dtype)
+            for shape in ((B, H, Sq, D), (B, KH, Sk, D), (B, KH, Sk, D),
+                          (B, H, Sq, D))]
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal,window,dtype",
+                         FLASH_GRAD_CASES)
+def test_flash_attention_lse_matches_plain(cuda, B, H, KH, Sq, Sk, D,
+                                           causal, window, dtype):
+    """The kernel's log-sum-exp against the plain version's within 1e-5
+    (1 + |lse|); its output with the lse on is bitwise the output without
+    (serving's launch)."""
+    q, k, v, _ = _flash_inputs(cuda, B, H, KH, Sq, Sk, D, dtype, Sq)
+    out, lse = F.flash_attention_lse(q, k, v, causal, window)
+    plain_out, plain_lse = F.flash_attention_plain_lse(q, k, v, causal,
+                                                       window)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    assert torch.equal(out, F.flash_attention(q, k, v, causal, window))
+    assert float(((lse - plain_lse).abs()
+                  / (1 + plain_lse.abs())).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal,window,dtype",
+                         FLASH_GRAD_CASES)
+def test_flash_attention_function_gradients_match_plain(cuda, B, H, KH, Sq,
+                                                        Sk, D, causal,
+                                                        window, dtype):
+    """ops.flash_attention with inputs that require grad: one kernel
+    launch forward, and dq, dk, dv of the ported backward against autograd
+    through the plain version."""
+    q, k, v, do = _flash_inputs(cuda, B, H, KH, Sq, Sk, D, dtype, Sk)
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+    before = F.launches
+    out = ops.flash_attention(*qkv, causal=causal, window=window)
+    assert out.grad_fn is not None and F.launches == before + 1
+    got = torch.autograd.grad(out, qkv, do)
+    want = torch.autograd.grad(
+        F.flash_attention_plain(*qkv, causal, window), qkv, do)
+    assert F.launches == before + 1
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == dtype and bool(torch.isfinite(g_).all())
+        assert float((g_.float() - w_.float()).abs().max()) <= \
+            FLASH_GRAD_TOL[dtype] * float(w_.float().abs().max())
+
+
+def _reduced_lm(cuda, remat=False):
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = get_config("internlm2-1.8b").reduced().with_overrides(
+        num_kv_heads=2, remat=remat)
+    model = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 96),
+                                     generator=torch.Generator()
+                                     .manual_seed(4))}
+    batch["labels"] = batch["tokens"].roll(-1, 1)
+    return cfg, model, batch
+
+
+def test_attention_weights_receive_gradients_on_the_card(cuda):
+    """The fault this slice repairs: with grad mode on, attention on the
+    card goes through FlashAttentionFunction, so wq, wk and wv get
+    gradients, equal to those with the plain version swapped in."""
+    import copy
+    from repro_torch.models import lm
+    cfg, cpu_model, batch = _reduced_lm(cuda)
+    model = copy.deepcopy(cpu_model).to(cuda)
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    grads = {}
+    for name, attention in (("kernel", None), ("plain", ops_plain_attention)):
+        model.zero_grad(set_to_none=True)
+        loss, _ = lm.loss_fn(cfg, model, batch, attention=attention)
+        loss.backward()
+        grads[name] = {n: p.grad.clone() for n, p in
+                       model.named_parameters()}
+    for n, want in grads["plain"].items():
+        got = grads["kernel"][n]
+        assert float(want.abs().max()) > 0
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max()), n
+    for blk in model.blocks:
+        for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv):
+            assert w.grad is not None
+
+
+def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
+    """One remat Adam step of the reduced LM on the card against the same
+    step on the CPU: 2 x layers kernel launches (forward and the
+    recompute), the loss within 1e-5, the parameters within the reference
+    microbatch test's tolerances where the update saturates (see
+    tests/test_torch_lm_train.py) and 2 lr everywhere."""
+    import copy
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam
+    cfg, cpu_model, batch = _reduced_lm(cuda, remat=True)
+    p0 = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    model = copy.deepcopy(cpu_model).to(cuda)
+    lr = 1e-3
+    losses = []
+    for m, dev in ((cpu_model, "cpu"), (model, cuda)):
+        opt = adam(lr)
+        state = opt.init(dict(m.named_parameters()))
+        before = F.launches
+        _, loss, _ = steps.make_train_step(cfg, opt)(
+            m, state, {k: v.to(dev) for k, v in batch.items()})
+        losses.append(float(loss))
+        assert F.launches - before == (0 if dev == "cpu"
+                                       else 2 * cfg.num_layers)
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    cpu = dict(cpu_model.named_parameters())
+    for n, p in model.named_parameters():
+        got, want = p.detach().cpu(), cpu[n].detach()
+        sat = (want - p0[n]).abs() >= lr / 2
+        assert torch.allclose(got[sat], want[sat], rtol=2e-3, atol=2e-4), n
+        assert float((got - want).abs().max()) <= 2 * lr

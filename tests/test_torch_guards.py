@@ -462,6 +462,35 @@ def test_flash_attention_kernel_input_checks_raise(bad, match):
         F._check(q, k, v, window)
 
 
+def test_flash_attention_kernel_refuses_inputs_that_require_grad():
+    """With grad mode on, the launch path refuses an input that requires
+    grad (the kernel's output would carry no gradient path) before any
+    other check; the op sends such inputs through FlashAttentionFunction,
+    whose forward reaches the launch path with grad mode off."""
+    from repro_torch.kernels import flash_attention as F
+    q, k, v = _meta_flash_inputs()
+    q.requires_grad_()
+    before = F.launches
+    with pytest.raises(RuntimeError, match="FlashAttentionFunction"):
+        F._launch(q, k, v, True, None, None)
+    with pytest.raises(RuntimeError, match="no gradient path"):
+        F.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.flash_attention(q, k, v)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
+        F._launch(q, k, v, True, None, None)
+    assert F.launches == before
+
+
+def test_lm_training_defaults_to_the_card(no_card):
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "internlm2-1.8b", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "internlm2-1.8b", "--reduced", "--steps", "1",
+                    "--consensus", "dec_admm"])
+
+
 def test_lm_serving_defaults_to_the_card(no_card):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -480,7 +509,7 @@ def test_unported_lm_families_say_not_yet_ported(arch):
     """MoE, jamba, xLSTM, the encoder-decoder and the VLM prefix name
     their ROADMAP item; the dense configurations build."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve, steps
+    from repro_torch.launch import serve, steps, train
     from repro_torch.models import LM
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
@@ -489,6 +518,10 @@ def test_unported_lm_families_say_not_yet_ported(arch):
         steps.make_prefill_step(cfg, 8)
     with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
         serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
+        train.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
+        steps.make_train_step(cfg, None)
     for dense in ("internlm2-1.8b", "chatglm3-6b", "granite-3-8b",
                   "phi3-medium-14b"):
         LM(get_config(dense).reduced(), device="cpu")
