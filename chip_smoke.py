@@ -257,14 +257,38 @@ Phases, one JSON line each:
            of parameters and one batch stream, held to each other
            (LM_TWIN_LOSS_TOL, LM_TWIN_PARAM_TOL). With --profile it traces
            one training step.
+  lm_families the other LM families (last; each model freed before the
+           next) through the serve launcher at their published widths
+           (LM_FAMILIES): dbrx-132b (MoE, 16 experts top-4; 4 of 40
+           layers), jamba-v0.1-52b (one superblock of 8 layers: attention,
+           4 mamba + MoE, 3 mamba) and internvl2-76b (8 of 80 layers, 256
+           patch embeddings before the prompt) in bf16 with B 2 x 2,048
+           stream tokens and 16 greedy steps, and whisper-small whole in
+           float32 (4 x 1,500 frames, a 2,048-token prompt, 32 steps). It
+           checks flash_attention launched once per attention product of
+           the prefill (whisper: 12 encoder, 12 self and 12 cross) and, for
+           whisper only, once per decoder layer a decode step (the
+           cross-attention at Sq 1), the prefill logits against the same
+           model with the plain attention and prefill + one decode step
+           against the parallel forward (LM_FAMILY_TOL, per dtype; the MoE
+           layers drop-free for that check), finite logits and the greedy
+           tokens as the lm phase does; it reports prefill ms, decode ms
+           per step, tok/s and peak memory (with --profile a traced dbrx
+           and jamba prefill). Then the reduced families (with
+           llama4-maverick; jamba at 4 layers) in float32 on the card
+           against the CPU, and one Adam step of whisper-small at full
+           size (train_4k: 2 x 4,096 tokens) whose gradient is held to the
+           plain attention's (WHISPER_GRAD_TOL).
 
 The kernels phase also holds flash_attention to its plain version at the
 prefill shape (4, 16/8, 2,048, 128, causal; timed, with PyTorch's
 scaled_dot_product_attention as the library yardstick, which the port
 never calls), a sliding window of 512 whose first key blocks are wholly
 masked for the late queries, bf16, ragged S = 1,000, the decode shape
-(Sq 1, Sk 2,081), D = 64 and D = 32, and the edges of the kernel's
-128-row query blocks and 64-key tiles, each bitwise repeatable; at each
+(Sq 1, Sk 2,081), D = 64 and D = 32, the edges of the kernel's 128-row
+query blocks and 64-key tiles, and the LM families' modes (whisper's
+non-causal encoder and its cross-attention at Sq 2,048 > Sk 1,500 and
+at Sq 1, dbrx's GQA 6 in bf16), each bitwise repeatable; at each
 case its log-sum-exp output against the plain logsumexp, and the
 gradients of FlashAttentionFunction (the kernel forward, the ported
 chunked backward) against autograd through the plain version. rbf_gram's
@@ -278,7 +302,7 @@ sparse paper fleet, one npae, nn_npae and grbcm tile of the methods
 phase's fleet, and one LM prefill and one decode step with
 torch.profiler, and prints device time by kernel, the GEMMs' share and
 the device's busy share; the lm_train phase then traces one full training
-step.
+step, and the lm_families phase one dbrx and one jamba prefill.
 
 Then it prints the kernel table as one JSON object, the card's name and
 power limit as nvidia-smi reports them, and last
@@ -437,7 +461,10 @@ BF16_TC_FLOPS_PER_S = 989e12          # NVIDIA data sheet, dense tensor cores
 # (timed), ragged S, the decode shape, D = 64 and D = 32; then the edges
 # of the 128-row query block and 64-key tile: S of 127, 128, 129 and 191,
 # Sk - Sq not a multiple of the key tile, a window that masks whole
-# leading key tiles of a block, bf16 at D = 128 (its dropped passes)
+# leading key tiles of a block, bf16 at D = 128 (its dropped passes); then
+# the LM families' modes: whisper's cross-attention (Sq 2,048 > Sk 1,500,
+# no mask) and encoder (MHA, D 64, non-causal), dbrx's GQA 6 in bf16, and
+# a whisper decode step's cross-attention (Sq 1 against 1,500 frames)
 FLASH_CASES = [(4, 16, 8, 2048, 2048, 128, True, None, "float32"),
                (1, 16, 8, 2048, 2048, 128, True, 512, "float32"),
                (4, 16, 8, 2048, 2048, 128, True, None, "bfloat16"),
@@ -451,7 +478,11 @@ FLASH_CASES = [(4, 16, 8, 2048, 2048, 128, True, None, "float32"),
                (1, 4, 2, 191, 191, 64, False, None, "float32"),
                (1, 4, 2, 129, 300, 64, True, None, "float32"),
                (1, 4, 2, 640, 640, 128, True, 100, "float32"),
-               (1, 8, 2, 300, 300, 128, True, None, "bfloat16")]
+               (1, 8, 2, 300, 300, 128, True, None, "bfloat16"),
+               (2, 12, 12, 2048, 1500, 64, False, None, "float32"),
+               (2, 12, 12, 1500, 1500, 64, False, None, "float32"),
+               (2, 48, 8, 2048, 2048, 128, True, None, "bfloat16"),
+               (2, 12, 12, 1, 1500, 64, False, None, "float32")]
 # max |kernel - plain| relative to max |plain output|: float32 sums in
 # another order (the tolerance the reference's tests hold its Pallas
 # kernel to), bf16 outputs rounded to 8 bits
@@ -497,6 +528,61 @@ LM_TWIN_LOSS_TOL = 1e-5               # relative, every step
 LM_TWIN_PARAM_TOL = 1e-5              # DEC-ADMM, relative to max |theta|
 # one attention layer of the training step (B, H, KH, S, S, D), timed
 LM_TRAIN_ATTENTION = (2, 16, 8, 4096, 4096, 128)
+
+# LM families (lm_families phase): (arch, layers run or None for all,
+# dtype, batch, prompt tokens, generated tokens), each at its published
+# widths through the serve launcher, the depth cut only where one 80 GB
+# card forces it (parameters from the reference's param_defs: dbrx 4 of 40
+# layers 14.27 B, 28.5 GB bf16; jamba one superblock, 8 of 32 layers
+# (attention, 4 mamba + MoE, 3 mamba) 12.77 B, 25.5 GB; internvl2 8 of 80
+# 8.95 B, 17.9 GB, its 256 patch embeddings before 1,792 prompt tokens;
+# whisper-small whole, 0.311 B float32, 1,500 frames and a 2,048-token
+# prompt, so its cross-attention runs Sq > Sk)
+LM_FAMILIES = [("dbrx-132b", 4, "bfloat16", 2, 2048, 16),
+               ("jamba-v0.1-52b", 8, "bfloat16", 2, 2048, 16),
+               ("internvl2-76b", 8, "bfloat16", 2, 1792, 16),
+               ("whisper-small", None, "float32", 4, 2048, 32)]
+# prefill logits through the kernel against the plain attention, and
+# prefill + decode against the parallel forward, max |error| relative to
+# max |logit|. float32: LM_LOGIT_TOL's reasoning. bf16: both attentions
+# compute in float32 and round to bf16, so their outputs differ by one bf16
+# ulp (2^-8 relative) wherever the two float32 results straddle a rounding
+# boundary, and every bf16 GEMM after them rounds again (decode also runs
+# other GEMM shapes than the parallel forward); 4-8 layers carry that to
+# the bf16 logits, whose own ulp is 3.9e-3 of max |logit|. The gate is
+# about 8 of those ulps
+LM_FAMILY_TOL = {"float32": LM_LOGIT_TOL, "bfloat16": 3e-2}
+# the kernel against its plain version on each attention call of a served
+# run, max |error| relative to max |v| (_PairedAttention). bf16: outputs
+# rounded to 8 bits (FLASH_TOL). float32: the tensor cores' float32
+# accumulation of p v over up to 2,048 keys rounds in units of the running
+# sums, which a common component of v's rows (the model's, not FLASH_CASES'
+# zero-mean random v) makes far larger than the output's spread: whisper-
+# small's worst call, its decoder's causal self-attention with scaled
+# scores below 2, read 2.4e-5 on the card (PR 25's first runs; inferred,
+# not measured apart), and the gate is about four times that, as
+# LM_GRAD_TOL is set
+PAIRED_TOL = {"float32": 1e-4, "bfloat16": FLASH_TOL["bfloat16"]}
+# the reduced twins (float32, jamba at 4 layers so that both mamba kinds
+# run), card against CPU from one set of weights and inputs: prefill and
+# every decode step's logits, relative to max |logit| (LM_LOGIT_TOL)
+LM_FAMILY_TWINS = ("dbrx-132b", "llama4-maverick-400b-a17b",
+                   "jamba-v0.1-52b", "internvl2-76b", "whisper-small")
+LM_FAMILY_TWIN_GEN = 8
+# one Adam step of whisper-small at full size: train_4k's 4,096 decoder
+# tokens, its batch of 256 cut to 2 (the reference's encoder-decoder reads
+# no remat)
+WHISPER_TRAIN_ARGS = ["--arch", "whisper-small", "--shape", "train_4k",
+                      "--batch", "2", "--lr", "1e-4", "--steps", "1"]
+# its gradient with the kernel against the plain attention's, per
+# parameter tensor max |error| / max |plain gradient|. The cross-attention's
+# wq and wk (and ln_x before it) get sums over 1,500 near-uniform weights
+# (scaled scores below 2) of frames with a common component: the
+# cancellation LM_GRAD_TOL's comment describes, deeper here. The card read
+# 2.7e-3 (cross_attn.wk) with the row-normalized backward (PR 25's first
+# runs; tools/lm_grad_witness.py --arch whisper-small sets each path
+# against float64); the gate is about four times that
+WHISPER_GRAD_TOL = 1e-2
 
 
 # methods phase: CBNN, grBCM and dense NPAE on the paper fleet (float32,
@@ -4286,15 +4372,7 @@ def phase_lm(ctx):
     logit_err = float((logits - plain["prefill_logits"]).abs().max()) / scale
     # greedy tokens: equal up to the first step where they differ, and
     # there the plain run's top-2 gap must be within the tolerance
-    same = (tokens == plain["tokens"]).cpu()
-    agree = []
-    for b in range(B):
-        n = int(same[b].long().cumprod(0).sum())
-        agree.append(n)
-        if n < G and float(plain["gaps"][b, n]) > LM_LOGIT_TOL * scale:
-            raise AssertionError(f"sequence {b}: greedy tokens differ at "
-                                 f"step {n} where the top-2 gap is "
-                                 f"{float(plain['gaps'][b, n])}")
+    agree = _greedy_agreement(tokens, plain, LM_LOGIT_TOL, scale)
     if not logit_err <= LM_LOGIT_TOL:
         raise AssertionError(f"prefill logits with the kernel vs its plain "
                              f"version: {logit_err} > {LM_LOGIT_TOL}")
@@ -4641,8 +4719,9 @@ def phase_lm_train(ctx):
 def _profiled(fn, port_kernel):
     """Device time by kernel over one call of `fn` (after a warm-up), the
     port kernel's device time and launches, the matrix products' device
-    time (cuBLAS/CUTLASS GEMM kernels, by name), and the device's busy
-    share of the call's wall time (one stream: kernels do not overlap)."""
+    time (cuBLAS/CUTLASS GEMM kernels by name, cuBLAS's nvjet kernels
+    included), and the device's busy share of the call's wall time (one
+    stream: kernels do not overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4671,7 +4750,7 @@ def _profiled(fn, port_kernel):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     port = [(us, n) for k, (us, n) in by_kernel.items() if port_kernel in k]
     gemm = [us for k, (us, _) in by_kernel.items()
-            if re.search(r"gemm|xmma|cutlass", k, re.IGNORECASE)]
+            if re.search(r"gemm|xmma|cutlass|nvjet", k, re.IGNORECASE)]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             f"{port_kernel}_device_ms": sum(us for us, _ in port) / 1e3,
             f"{port_kernel}_device_launches": sum(n for _, n in port),
@@ -4737,6 +4816,422 @@ def phase_profile(ctx):
                 lambda: decode(model, cache, prompts[:, :1]), "flash_fwd")}
 
 
+@contextlib.contextmanager
+def _drop_free(model):
+    """Every MoE layer of `model` at capacity factor E / k for the block:
+    each expert's capacity is then its group's size, so no choice drops.
+    Decode is drop-free by the reference's rule while a parallel forward
+    over the same tokens drops choices at the configured factor; holding
+    one to the other needs both drop-free."""
+    from repro_torch.models.moe import MoE
+    layers = [m for m in model.modules() if isinstance(m, MoE)]
+    keep = [m.cfg for m in layers]
+    for m in layers:
+        m.cfg = m.cfg.with_overrides(
+            moe_capacity_factor=m.cfg.num_experts / m.cfg.experts_per_token)
+    try:
+        yield
+    finally:
+        for m, cfg in zip(layers, keep):
+            m.cfg = cfg
+
+
+class _PairedAttention:
+    """An attention hook (ops.flash_attention's signature) that runs the
+    kernel and its plain version on the same inputs, keeps each call's
+    max |kernel - plain| over max |v| in `errors`, and returns the
+    kernel's output: the kernel held to its plain version at every
+    attention product of a model run, on the model's own q, k and v.
+    Each output row is a convex combination of v's rows, so its rounding
+    is bounded in units of max |v|; against max |output| it would grow
+    with the averaging (a non-causal row over 1,500 frames cancels to an
+    output far below |v|), which FLASH_CASES' random inputs do not show."""
+
+    def __init__(self):
+        self.errors = []
+        self.worst = None
+
+    def __call__(self, q, k, v, causal=True, window=None, scale=None):
+        from repro_torch.kernels import flash_attention as F
+        from repro_torch.kernels import ops
+        got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  scale=scale)
+        want = F.flash_attention_plain(q, k, v, causal, window, scale)
+        err = float((got.float() - want.float()).abs().max()) / \
+            max(float(v.float().abs().max()), 1e-30)
+        if not self.errors or err > max(self.errors):
+            self.worst = {"q": list(q.shape), "k": list(k.shape),
+                          "causal": causal, "max_rel_err": err,
+                          "max_abs_scaled_score": float(
+                              (q[:, :1].float() @ k[:, :1].float()
+                               .transpose(-1, -2)).abs().max())
+                          * q.shape[-1] ** -0.5}
+        self.errors.append(err)
+        return got
+
+
+@contextlib.contextmanager
+def _routing(model, into: dict):
+    """Record every MoE layer's top-k experts (B, S, k), sorted, of each
+    call within the block: into[layer] is a list, one entry a call. The
+    hook repeats moe.route's router product, softmax and top-k on the
+    layer's input, so it picks what the layer picked."""
+    import torch
+    from repro_torch.models.moe import MoE, capacity
+    hooks = []
+    for i, m in enumerate(x for x in model.modules() if isinstance(x, MoE)):
+        def hook(mod, args, out, calls=into.setdefault(i, [])):
+            x = args[0]
+            B, S, d = x.shape
+            g, _ = capacity(mod.cfg, B, S)
+            logits = torch.einsum("Ggd,de->Gge", x.reshape(-1, g, d),
+                                  mod.router).to(torch.float32)
+            top = torch.topk(torch.softmax(logits, dim=-1),
+                             mod.cfg.experts_per_token, dim=-1).indices
+            calls.append(top.reshape(B, S, -1).sort(-1).values)
+        hooks.append(m.register_forward_hook(hook))
+    try:
+        yield into
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _route_flips(a: dict, b: dict, join_a=False) -> int:
+    """(layer, token) pairs whose top-k experts differ between two
+    recordings of the same tokens: a's first call against b's (with
+    `join_a`, a's calls joined along the sequence, a prefill and its
+    decode step against one parallel forward)."""
+    import torch
+    flips = 0
+    for i in a:
+        got = torch.cat(a[i], 1) if join_a else a[i][0]
+        flips += int((got != b[i][0]).any(-1).sum())
+    return flips
+
+
+def _greedy_agreement(tokens, plain, tol, scale):
+    """Steps each sequence's greedy tokens equal the plain run's; raises
+    where they part while the plain run's top-2 gap exceeds tol x scale."""
+    same = (tokens == plain["tokens"]).cpu()
+    agree = []
+    for b in range(tokens.shape[0]):
+        n = int(same[b].long().cumprod(0).sum())
+        agree.append(n)
+        if n < tokens.shape[1] and \
+                float(plain["gaps"][b, n]) > tol * scale:
+            raise AssertionError(f"sequence {b}: greedy tokens differ at "
+                                 f"step {n} where the top-2 gap is "
+                                 f"{float(plain['gaps'][b, n])}")
+    return agree
+
+
+def lm_family(ctx, arch, layers, dtype, B, P, G):
+    """One LM family at its published widths through the serve launcher
+    (counts reset just before the cold run, read just after), then warm,
+    paired with the plain attention at every call, with the plain
+    attention end to end, and prefill + one decode step against the
+    parallel forward. Returns (report, the cold run's launches, (model,
+    prompts, embeds))."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import encdec, lm
+    dev = torch.device(DEVICE)
+    argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
+            "--gen", str(G), "--dtype", dtype, "--seed", str(ctx["seed"]),
+            "--device", DEVICE]
+    if layers:
+        argv += ["--layers", str(layers)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    F.reset_launches()
+    t0 = time.perf_counter()
+    cold = serve.run(serve.parse_args(argv))
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = F.launches
+    model, prompts = cold["model"], cold["prompts"]
+    frames, embeds = cold["frames"], cold["embeds"]
+    cfg = model.cfg
+    attn = serve.attention_layers(cfg)
+    per_step = cfg.num_layers if cfg.encdec else 0
+    if (cold["prefill_launches"], cold["decode_launches"], launches) != \
+            (attn, per_step * G, attn + per_step * G):
+        raise AssertionError(
+            f"{arch}: flash_attention launched {cold['prefill_launches']} "
+            f"times in the prefill and {cold['decode_launches']} in "
+            f"decode, not {attn} and {per_step * G}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    warm = serve.generate(model, prompts, G, frames=frames, embeds=embeds)
+    peak = torch.cuda.max_memory_allocated(dev)
+    logits, tokens = warm["prefill_logits"], warm["tokens"]
+    if logits.shape != (B, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()) or \
+            tokens.shape != (B, G) or \
+            not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"{arch}: prefill logits or tokens are not "
+                             f"finite of the expected shape")
+    # the kernel against its plain version at every attention product of
+    # a served run, on the model's own inputs
+    paired = _PairedAttention()
+    with _routing(model, {}) as kernel_routes:
+        serve.generate(model, prompts, G, attention=paired, frames=frames,
+                       embeds=embeds)
+    paired_err = max(paired.errors)
+    if len(paired.errors) != attn + per_step * G or \
+            not paired_err <= PAIRED_TOL[dtype]:
+        raise AssertionError(f"{arch}: the kernel vs its plain version on "
+                             f"the model's attention inputs: {paired_err} "
+                             f"> {PAIRED_TOL[dtype]} over "
+                             f"{len(paired.errors)} calls, worst "
+                             f"{paired.worst}")
+
+    # the same model with the plain attention, end to end. A top-k router
+    # is discontinuous: where the two runs' bf16 roundings route a token
+    # to other experts the logits part by more than rounding, so the
+    # logits and greedy tokens are gated when every MoE layer routed
+    # every token alike (the routes that differ are counted)
+    tol = LM_FAMILY_TOL[dtype]
+    with _routing(model, {}) as plain_routes:
+        plain = serve.generate(model, prompts, G, attention=plain_attention,
+                               frames=frames, embeds=embeds)
+    flips = _route_flips(kernel_routes, plain_routes)
+    scale = float(plain["prefill_logits"].float().abs().max())
+    logit_err = float((logits.float() - plain["prefill_logits"].float())
+                      .abs().max()) / scale
+    agree = _greedy_agreement(tokens, plain, tol, scale) if not flips \
+        else None
+    if not flips and not logit_err <= tol:
+        raise AssertionError(f"{arch}: prefill logits with the kernel vs "
+                             f"its plain version: {logit_err} > {tol}")
+    del plain
+
+    # prefill + one decode step against the parallel forward over P + 1
+    # (drop-free MoE on both sides), gated as above
+    nxt = prompts[:, :1]
+    with _drop_free(model), torch.no_grad():
+        prefill = steps.make_prefill_step(cfg, P + 2 + cfg.vis_tokens)
+        decode = steps.make_decode_step(cfg)
+        with _routing(model, {}) as step_routes:
+            if cfg.encdec:
+                _, cache, enc = prefill(model, frames, prompts)
+                ld, _ = decode(model, cache, enc, nxt)
+            else:
+                _, cache = prefill(model, prompts, embeds)
+                ld, _ = decode(model, cache, nxt)
+        del cache
+        with _routing(model, {}) as parallel_routes:
+            if cfg.encdec:
+                lf, _ = model.decode(torch.cat([prompts, nxt], 1), enc,
+                                     logits_slice=1)
+            else:
+                lf, _, _ = model(torch.cat([prompts, nxt], 1),
+                                 embeds=embeds, logits_slice=1)
+    decode_flips = _route_flips(step_routes, parallel_routes, join_a=True)
+    decode_err = float((ld[:, -1].float() - lf[:, -1].float()).abs().max()) \
+        / float(lf.float().abs().max())
+    if not decode_flips and not decode_err <= tol:
+        raise AssertionError(f"{arch}: prefill + decode vs the parallel "
+                             f"forward: {decode_err} > {tol}")
+    counted = encdec.param_count(cfg) if cfg.encdec else lm.param_count(cfg)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    report = {
+        "arch": arch, "layers": cfg.num_layers,
+        "published_layers": get_config(arch).num_layers,
+        "d_model": cfg.d_model, "heads": cfg.num_heads,
+        "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+        "experts": cfg.num_experts, "experts_per_token":
+            cfg.experts_per_token, "vocab": cfg.vocab_size,
+        "parameters": counted, "parameter_bytes": param_bytes,
+        "dtype": dtype, "batch": B, "prompt_len": P,
+        "prefix_tokens": cfg.vis_tokens, "frames": cfg.enc_seq, "gen": G,
+        "cold_run_s": cold_s, "cold_prefill_ms": 1e3 * cold["prefill_s"],
+        "prefill_ms": 1e3 * warm["prefill_s"],
+        "prefill_tokens_per_s": B * (P + cfg.vis_tokens) / warm["prefill_s"],
+        "decode_ms_per_step": 1e3 * warm["decode_s"] / G,
+        "decode_tokens_per_s": B * G / warm["decode_s"],
+        "peak_memory_bytes": peak - held,
+        "memory_held_before_bytes": held,
+        "flash_attention_launches_prefill": cold["prefill_launches"],
+        "flash_attention_launches_decode": cold["decode_launches"],
+        "attention_calls_paired": len(paired.errors),
+        "max_rel_err_attention_vs_plain": paired_err,
+        "paired_tol": PAIRED_TOL[dtype], "worst_paired_call": paired.worst,
+        "logit_tol": tol, "max_rel_err_logits_vs_plain": logit_err,
+        "moe_routes_differing_vs_plain": flips,
+        "max_rel_err_decode_vs_parallel": decode_err,
+        "moe_routes_differing_decode_vs_parallel": decode_flips,
+        "greedy_steps_equal_to_plain": agree,
+        "warm_tokens_equal_cold": bool(torch.equal(tokens, cold["tokens"])),
+        "min_top2_gap": float(warm["gaps"].float().min()),
+        "first_tokens": tokens[:, :8].tolist()}
+    return report, launches, (model, prompts, embeds)
+
+
+def lm_family_twins(ctx):
+    """The reduced families in float32, card against CPU from one set of
+    weights (drawn on the CPU) and one set of prompts, frames and patch
+    embeddings: the prefill's and every decode step's logits within
+    LM_LOGIT_TOL of max |logit|, the CPU's greedy tokens fed to both, and
+    the card's launches one per attention product of the prefill (and
+    one per decoder layer a whisper decode step)."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import build_model
+    dev = torch.device(DEVICE)
+    out = {}
+    for arch in LM_FAMILY_TWINS:
+        cfg = get_config(arch).reduced(
+            layers=4 if arch.startswith("jamba") else 2)
+        gen = torch.Generator().manual_seed(ctx["seed"])
+        cpu = build_model(cfg, device="cpu", generator=gen)
+        card = copy.deepcopy(cpu).to(dev)
+        P, G = 64, LM_FAMILY_TWIN_GEN
+        prompts = torch.randint(0, cfg.vocab_size, (2, P), generator=gen)
+        frames, embeds = serve.stub_inputs(cfg, 2, gen, "cpu")
+        prefill = steps.make_prefill_step(cfg, P + G + cfg.vis_tokens + 1)
+        decode = steps.make_decode_step(cfg)
+        runs = {}
+        for name, model, device in (("cpu", cpu, torch.device("cpu")),
+                                    ("card", card, dev)):
+            F.reset_launches()
+            if cfg.encdec:
+                lg, cache, enc = prefill(model, frames.to(device),
+                                         prompts.to(device))
+            else:
+                lg, cache = prefill(model, prompts.to(device),
+                                    None if embeds is None
+                                    else embeds.to(device))
+            seen = [lg[:, -1].cpu()]
+            for step in range(G):
+                src = runs["cpu"]["logits"][step] if name == "card" \
+                    else seen[-1]
+                tok = src.argmax(-1)[:, None].to(device)
+                if cfg.encdec:
+                    lg, cache = decode(model, cache, enc, tok)
+                else:
+                    lg, cache = decode(model, cache, tok)
+                seen.append(lg[:, -1].cpu())
+            runs[name] = {"logits": seen, "launches": F.launches}
+        err = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(runs["card"]["logits"],
+                                  runs["cpu"]["logits"]))
+        want = serve.attention_layers(cfg) + \
+            (cfg.num_layers * G if cfg.encdec else 0)
+        if runs["card"]["launches"] != want or not err <= LM_LOGIT_TOL:
+            raise AssertionError(f"{arch} twins: {runs['card']['launches']} "
+                                 f"launches (want {want}), card vs CPU "
+                                 f"logits {err} > {LM_LOGIT_TOL}")
+        out[arch] = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                     "max_rel_err_logits": err,
+                     "flash_launches_card": runs["card"]["launches"]}
+        del card, cpu
+    return out
+
+
+def whisper_train_step(ctx):
+    """One Adam step of whisper-small at full size through the train
+    launcher (train_4k: 4,096 decoder tokens, batch 2), then one gradient
+    with the kernel and one with the plain attention, every parameter
+    tensor within WHISPER_GRAD_TOL of max |plain gradient|."""
+    import torch
+    from repro_torch.data import MarkovLMData
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.launch import train
+    from repro_torch.models import encdec
+    dev = torch.device(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    F.reset_launches()
+    res = train.run(train.parse_args(
+        WHISPER_TRAIN_ARGS + ["--seed", str(ctx["seed"]),
+                              "--device", DEVICE]))
+    launches = F.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg, losses, step_s = res["cfg"], res["losses"], res["step_s"][0]
+    want = cfg.enc_layers + 2 * cfg.num_layers
+    if launches != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"whisper step: {launches} launches (want "
+                             f"{want}), losses {losses}")
+    model = res["models"][0]
+    del res
+    seq = train.SHAPES["train_4k"]["seq"]
+    gen = torch.Generator(dev).manual_seed(ctx["seed"] + 1)
+    batch = train.make_batch(MarkovLMData(cfg.vocab_size, seed=1), 2, seq,
+                             dev, cfg, gen)
+    grads, loss_of = {}, {}
+    for name, attention in (("kernel", None), ("plain", plain_attention)):
+        model.zero_grad(set_to_none=True)
+        loss = encdec.loss_fn(cfg, model, batch, attention=attention)[0]
+        loss.backward()
+        loss_of[name] = float(loss.detach())
+        grads[name] = {n: p.grad for n, p in model.named_parameters()}
+        del loss
+    model.zero_grad(set_to_none=True)
+    worst = {}
+    for n, w in grads["plain"].items():
+        got = grads["kernel"][n]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{n}: the kernel path's gradient is not "
+                                 f"finite")
+        kind = ".".join(p for p in n.split(".") if not p.isdigit())
+        worst[kind] = max(worst.get(kind, 0.0), float(
+            (got - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+    del grads, model, batch
+    torch.cuda.empty_cache()
+    loss_err = abs(loss_of["kernel"] - loss_of["plain"]) / \
+        abs(loss_of["plain"])
+    if not (max(worst.values()) <= WHISPER_GRAD_TOL
+            and loss_err <= LM_LOGIT_TOL):
+        raise AssertionError(f"whisper step: the kernel path's gradient or "
+                             f"loss disagrees with the plain version's: "
+                             f"{worst}, {loss_err}")
+    return {"arch": cfg.name, "tokens_per_step": 2 * seq,
+            "frames": cfg.enc_seq, "loss": losses[0],
+            "step_ms": 1e3 * step_s,
+            "tokens_per_s": 2 * seq / step_s,
+            "flash_launches": launches, "peak_memory_bytes": peak - held,
+            "loss_kernel": loss_of["kernel"], "loss_plain": loss_of["plain"],
+            "max_rel_err_loss": loss_err, "grad_tol": WHISPER_GRAD_TOL,
+            "max_rel_err_grad_by_kind": worst}, launches
+
+
+def phase_lm_families(ctx):
+    """The MoE, jamba, VLM and whisper families (LM_FAMILIES) served at
+    their published widths, each freed before the next; with --profile a
+    traced dbrx and jamba prefill; the reduced twins card vs CPU; one
+    whisper Adam step at full size."""
+    import torch
+    from repro_torch.launch import steps
+    out = {"families": {}}
+    by_path = ctx["launches_by_path"]["flash_attention"]
+    for arch, layers, dtype, B, P, G in LM_FAMILIES:
+        report, launches, (model, prompts, embeds) = lm_family(
+            ctx, arch, layers, dtype, B, P, G)
+        by_path[f"lm_families:{arch}"] = launches
+        if ctx.get("profile") and arch in ("dbrx-132b", "jamba-v0.1-52b"):
+            prefill = steps.make_prefill_step(model.cfg, P + G + 1)
+            report["profile_prefill"] = _profiled(
+                lambda: prefill(model, prompts, embeds), "flash_fwd")
+        out["families"][arch] = report
+        del model, prompts, embeds
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out["twins"] = lm_family_twins(ctx)
+    out["whisper_train"], n = whisper_train_step(ctx)
+    by_path["lm_families:whisper_train"] = n
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4745,7 +5240,8 @@ def main(argv=None) -> int:
                          "fit, one ADMM iteration, one observe round, one "
                          "sparse fit, one sparse served batch, one npae, "
                          "nn_npae and grbcm tile, one LM prefill and one "
-                         "decode step with torch.profiler")
+                         "decode step, one training step and a dbrx and a "
+                         "jamba prefill with torch.profiler")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4776,6 +5272,7 @@ def main(argv=None) -> int:
     if args.profile:
         phases.append(("profile", phase_profile))
     phases.append(("lm_train", phase_lm_train))
+    phases.append(("lm_families", phase_lm_families))
     for name, fn in phases:
         try:
             out = fn(ctx)

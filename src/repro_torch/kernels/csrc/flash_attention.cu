@@ -4,8 +4,12 @@
 //   o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, h / g, j]) v[b, h / g, j]
 //
 // over the keys j that the mask admits: queries are right-aligned to the
-// key timeline (q_pos = i + Sk - Sq, so Sq <= Sk), causal keeps
-// k_pos <= q_pos, a window w keeps k_pos > q_pos - w. q (B, H, Sq, D),
+// key timeline (q_pos = i + Sk - Sq), causal keeps k_pos <= q_pos, a
+// window w keeps k_pos > q_pos - w. The wrapper allows Sq > Sk (a negative
+// offset Sk - Sq) only with neither: then kbeg = 0, kend = Sk, no tile is
+// skipped, only the ragged last one is cut, and the per-key mask reduces
+// to k_pos < Sk, so q_pos never enters (the whisper decoder's
+// cross-attention, a prompt longer than its 1,500 frames). q (B, H, Sq, D),
 // k and v (B, KH, Sk, D) with g = H / KH, float32 or bfloat16, contiguous;
 // o (B, H, Sq, D) in q's type. Everything is computed in float32. With a
 // non-null lse (B, H, Sq) float32 it also writes each row's log-sum-exp
@@ -79,7 +83,8 @@
 // first tiles of a sliding window) subtracts 0 instead of its -inf
 // running max, so its p and correction are exp2(-inf) = 0 and not
 // inf - inf = NaN; the TPU kernel avoids the same NaN with a finite
-// -1e30 sentinel. With Sq <= Sk every row has at least one admitted key.
+// -1e30 sentinel. With Sq <= Sk, or with neither mask, every row has at
+// least one admitted key.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -537,13 +542,14 @@ int flash_attention_supports_dim(int D) {
 // q (B, H, Sq, D), k and v (B, KH, Sk, D), o (B, H, Sq, D), contiguous on
 // the current device, 16-byte aligned, all float32 (bf16 == 0) or all
 // bfloat16 (bf16 == 1); lse null or (B, H, Sq) float32, contiguous.
-// window <= 0 means no window. Returns the CUDA error code of the launch
-// (0 on success).
+// window <= 0 means no window. Sq > Sk only with causal == 0 and no
+// window. Returns the CUDA error code of the launch (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, float* lse, int B, int H, int KH,
                            int Sq, int Sk, int D, int bf16, int causal,
                            int window, float scale, cudaStream_t stream) {
-  if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || Sq < 1 || Sq > Sk ||
+  if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || Sq < 1 || Sk < 1 ||
+      (Sq > Sk && (causal || window > 0)) ||
       !flash_attention_supports_dim(D) || (long long)B * H > 0x7fffffff ||
       (Sq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;

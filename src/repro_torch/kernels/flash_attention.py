@@ -5,15 +5,19 @@ sliding-window masking.
 
 over the keys the mask admits, for q (B, H, Sq, D) and k, v (B, KH, Sk, D)
 with g = H / KH. Queries are right-aligned to the key timeline: query i
-sits at position i + Sk - Sq, so Sq <= Sk (a decode step is Sq = 1 over the
-whole cache). `causal` admits keys at or before the query, `window` w the
-keys at positions > q_pos - w. It replaces the Pallas kernel
+sits at position i + Sk - Sq (a decode step is Sq = 1 over the whole
+cache). `causal` admits keys at or before the query, `window` w the keys
+at positions > q_pos - w; with neither, every query admits every key, at
+any Sq and Sk (the whisper decoder's cross-attention runs its prompt of
+Sq tokens against Sk = 1,500 encoder frames, Sq > Sk at a long prompt).
+It replaces the Pallas kernel
 `repro/kernels/flash_attention.py:flash_attention_pallas`.
 
 Both versions compute in float32 and return q's dtype, as the reference's
-Pallas and chunked jnp paths do. The reference returns the mean of v for
-a row with no admitted key (Sq > Sk, or a window of 0); the reference
-never serves such a shape, and here both versions refuse it.
+Pallas and chunked jnp paths do. Under a causal mask or a window, Sq > Sk
+leaves the first rows with no admitted key (q_pos < 0), where the
+reference returns the mean of v, as it does for a window of 0; the
+reference never serves such a shape, and here both versions refuse it.
 
 `flash_attention` dispatches on where its tensors lie. On the CPU it runs
 `flash_attention_plain`, the plain PyTorch version. On a CUDA device it
@@ -64,9 +68,10 @@ def reset_launches() -> None:
     launches = 0
 
 
-def check_shapes(q, k, v, window) -> None:
+def check_shapes(q, k, v, window, causal: bool = True) -> None:
     """Raise ValueError unless q (B, H, Sq, D), k and v (B, KH, Sk, D) with
-    H % KH == 0, Sq <= Sk, and window None or >= 1."""
+    H % KH == 0, window None or >= 1, Sk >= 1, and Sq <= Sk where the mask
+    is causal or windowed (without either every row admits every key)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention: want q (B, H, Sq, D), k and v "
@@ -75,10 +80,12 @@ def check_shapes(q, k, v, window) -> None:
     if k.shape[1] == 0 or q.shape[1] % k.shape[1]:
         raise ValueError(f"flash_attention: H = {q.shape[1]} query heads "
                          f"are not a multiple of KH = {k.shape[1]}")
-    if q.shape[2] > k.shape[2]:
-        raise ValueError(f"flash_attention: Sq = {q.shape[2]} > Sk = "
-                         f"{k.shape[2]}; right-aligned queries would have "
-                         f"no admitted key")
+    if k.shape[2] == 0 or (q.shape[2] > k.shape[2]
+                           and (causal or window is not None)):
+        raise ValueError(f"flash_attention: Sq = {q.shape[2]}, Sk = "
+                         f"{k.shape[2]}: with no key, or Sq > Sk under a "
+                         f"causal or windowed mask, right-aligned queries "
+                         f"would have no admitted key")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be None or >= 1, "
                          f"got {window}")
@@ -123,7 +130,7 @@ def flash_attention_plain(q, k, v, causal: bool = True, window=None,
     product with v, cast to q's dtype. GQA groups the g query heads of a
     kv head instead of repeating k and v; it materializes the
     (B, H, Sq, Sk) scores."""
-    check_shapes(q, k, v, window)
+    check_shapes(q, k, v, window, causal)
     return _plain_out(_plain_scores(q, k, causal, window, scale), q, v)
 
 
@@ -133,7 +140,7 @@ def flash_attention_plain_lse(q, k, v, causal: bool = True, window=None,
     scaled scores: (out (B, H, Sq, D) in q's dtype, lse (B, H, Sq)
     float32), the plain version of the kernel's lse output and the
     counterpart of `flash_jnp._flash_fwd_impl`'s (out, lse)."""
-    check_shapes(q, k, v, window)
+    check_shapes(q, k, v, window, causal)
     s = _plain_scores(q, k, causal, window, scale)
     lse = torch.logsumexp(s, dim=-1).reshape(q.shape[:3])
     return _plain_out(s, q, v), lse
@@ -169,7 +176,7 @@ def flash_attention_split_tf32(q, k, v, causal: bool = True, window=None,
     tensor cores'. Returns q's dtype."""
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes}")
-    check_shapes(q, k, v, window)
+    check_shapes(q, k, v, window, causal)
     B, H, Sq, D = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     g = H // KH
@@ -221,7 +228,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, window):
+def _check(q, k, v, window, causal: bool = True):
     """Raise unless the inputs are what the kernel takes: one dtype,
     float32 or bfloat16, contiguous and 16-byte aligned, D in KERNEL_DIMS,
     the shapes of `check_shapes`, all on the CUDA device of q."""
@@ -235,7 +242,7 @@ def _check(q, k, v, window):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention kernel: {name} must be "
                              f"contiguous")
-    check_shapes(q, k, v, window)
+    check_shapes(q, k, v, window, causal)
     if q.shape[3] not in KERNEL_DIMS:
         raise ValueError(f"flash_attention kernel: head dimension "
                          f"D={q.shape[3]} is not one of {KERNEL_DIMS}")
@@ -260,7 +267,7 @@ def _launch(q, k, v, causal, window, scale, with_lse: bool = False):
             "is on, but the kernel's output would have no gradient path; "
             "differentiate through FlashAttentionFunction "
             "(kernels.ops.flash_attention routes there)")
-    _check(q, k, v, window)
+    _check(q, k, v, window, causal)
     B, H, Sq, D = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -342,14 +349,22 @@ def flash_attention_bwd(q, k, v, lse, dout, causal: bool = True,
     internlm2-1.8b's full width that mismatch, amplified by the keys'
     common component in sum_j ds_j k_j, took the wq and wk gradients
     5.2e-4 (of their max) from float64 against 7.0e-5 with the recomputed
-    delta (PERF.md §6). The g query heads of a kv head are grouped
+    delta (PERF.md §6). A second change: the first pass also sums each
+    row's recomputed p, and the second pass divides p and delta by that
+    sum (lse += log sum p), so a row's weights sum to 1 whatever the
+    forward's lse rounding. The kernel's lse is a few float32 ulps from
+    the recompute's, a uniform scale e^-eps on the row's p that leaves
+    eps p_j delta in every ds_j; summed into dq and dk against keys and
+    queries with a common component it took whisper-small's attention
+    wq / wk gradients 2.5-3.5e-2 (of their max) from the plain
+    attention's (PERF.md §6). The g query heads of a kv head are grouped
     as rows of one product, so dk and dv come out summed over the GQA
     group. The last chunk may be ragged (the reference's chunked path
     reads a shifted slice there, ROADMAP C13; its op only passes divisors
     of Sk). Query rows that no key of a chunk admits are left out of that
     chunk's products: their p is exactly 0, so they add nothing.
     Returns dq in q's dtype, dk and dv in k's and v's."""
-    check_shapes(q, k, v, window)
+    check_shapes(q, k, v, window, causal)
     B, H, Sq, D = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     g = H // KH
@@ -387,9 +402,17 @@ def flash_attention_bwd(q, k, v, lse, dout, causal: bool = True,
 
     with _full_float32():
         delta5 = torch.zeros_like(lse5)
+        lsum5 = torch.zeros_like(lse5)
         for _, _, r0, r1, _, _, _, _, dp, p in chunks():
-            delta5[:, :, :, r0:r1] += dp.mul_(p).sum(-1).view(
-                B, KH, g, r1 - r0)
+            R = r1 - r0
+            lsum5[:, :, :, r0:r1] += p.sum(-1).view(B, KH, g, R)
+            delta5[:, :, :, r0:r1] += dp.mul_(p).sum(-1).view(B, KH, g, R)
+        # normalize the recomputed p by its row sum (lse += log sum p);
+        # the clamp keeps a row that no key admits at p = 0
+        lsum5.clamp_(min=torch.finfo(f32).tiny)
+        lse5 = lse5 + lsum5.log()
+        delta5 /= lsum5
+        del lsum5
         dq5 = torch.zeros_like(q5)
         dk = torch.zeros((B, KH, Sk, D), dtype=f32, device=q.device)
         dv = torch.zeros_like(dk)

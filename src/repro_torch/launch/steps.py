@@ -1,12 +1,14 @@
-"""Train, federated, prefill and decode steps of the decoder-only LM
-(counterpart of repro.launch.steps).
+"""Train, federated, prefill and decode steps of the LMs (counterpart of
+repro.launch.steps): the decoder-only families (`lm.loss_fn`) and the
+whisper encoder-decoder (`encdec.loss_fn`, its prefill encoding the
+frames and its decode steps taking the encoder states).
 
 The reference's steps take the parameter pytree as their first argument;
 here the parameters live in the `LM` module, which takes its place, and
 a train step updates them in place. The reference's spec builders
 (`param_structs`, `param_specs`, `batch_structs`, `cache_structs`,
 `build`) shard through `launch/sharding.py` and come with the LM's
-sharding (ROADMAP A7b); the encoder-decoder loss with A11c.
+sharding (ROADMAP A7b).
 
 The paper's technique enters through the federated step: one LM per
 agent, each on its agent mesh member's device, trained by the
@@ -17,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..core import federated
-from ..models import lm
+from ..models import encdec, lm
 from ..models.lm import check_supported
 from ..optim import adafactor, adam
 
@@ -81,7 +83,8 @@ def _detached(metrics):
 
 def make_train_step(cfg, optimizer, microbatch: int = 1):
     """train_step(model, opt_state, batch, attention=None) -> (opt_state,
-    loss, metrics): the gradient of `lm.loss_fn` over the model's
+    loss, metrics): the gradient of the family's loss (`lm.loss_fn`, or
+    `encdec.loss_fn` for an encoder-decoder) over the model's
     parameters, `optimizer`'s update applied to them in place.
 
     microbatch > 1 accumulates the gradient over that many equal slices
@@ -89,13 +92,13 @@ def make_train_step(cfg, optimizer, microbatch: int = 1):
     reference's scan does; the loss is then the slices' mean and metrics
     are {}. `attention` replaces ops.flash_attention in every layer."""
     check_supported(cfg)
+    loss_fn = encdec.loss_fn if cfg.encdec else lm.loss_fn
 
     def train_step(model, opt_state, batch, attention=None):
         params = dict(model.named_parameters())
         model.zero_grad(set_to_none=True)
         if microbatch == 1:
-            loss, metrics = lm.loss_fn(cfg, model, batch,
-                                       attention=attention)
+            loss, metrics = loss_fn(cfg, model, batch, attention=attention)
             loss.backward()
             grads = {n: p.grad for n, p in params.items()}
             loss, metrics = loss.detach(), _detached(metrics)
@@ -112,7 +115,7 @@ def make_train_step(cfg, optimizer, microbatch: int = 1):
             for i in range(microbatch):
                 part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 model.zero_grad(set_to_none=True)
-                li, _ = lm.loss_fn(cfg, model, part, attention=attention)
+                li, _ = loss_fn(cfg, model, part, attention=attention)
                 li.backward()
                 with torch.no_grad():
                     for n, p in params.items():
@@ -148,6 +151,7 @@ def make_federated_train_step(cfg, *, n_agents: int, rho: float = 1.0,
     exchange=False is the local-only variant: no messages and no dual
     update, theta_i -= g_i / (kappa + 2 |N| rho), the same step size."""
     check_supported(cfg)
+    loss_fn = encdec.loss_fn if cfg.encdec else lm.loss_fn
     deg = 2.0 if n_agents > 2 else 1.0
 
     def step(models, duals, batches, attention=None):
@@ -158,7 +162,7 @@ def make_federated_train_step(cfg, *, n_agents: int, rho: float = 1.0,
         losses = []
         for model, batch in zip(models, batches):
             model.zero_grad(set_to_none=True)
-            loss = lm.loss_fn(cfg, model, batch, attention=attention)[0]
+            loss = loss_fn(cfg, model, batch, attention=attention)[0]
             loss.backward()
             losses.append(loss.detach())
         params = [dict(m.named_parameters()) for m in models]
@@ -191,23 +195,51 @@ def make_federated_train_step(cfg, *, n_agents: int, rho: float = 1.0,
 
 
 def make_prefill_step(cfg, max_len: int):
-    """prefill(model, tokens (B, P)) -> (logits (B, 1, V), cache): a fresh
-    cache of `max_len` positions filled with the prompt's k/v, and the
-    logits of the prompt's last position."""
+    """A fresh cache of `max_len` positions filled with the prompt, and the
+    logits of the prompt's last position (B, 1, V):
+
+      decoder-only     prefill(model, tokens (B, P), embeds=None,
+                       attention=None) -> (logits, cache), `embeds` the
+                       VLM's patch prefix (B, vis_tokens, d);
+      encoder-decoder  prefill(model, frames (B, enc_seq, d), tokens,
+                       attention=None) -> (logits, cache, enc_out).
+
+    `attention` replaces ops.flash_attention in every layer."""
     check_supported(cfg)
 
+    if cfg.encdec:
+        @torch.no_grad()
+        def prefill_encdec(model, frames, tokens, attention=None):
+            enc_out = model.encode(frames, attention)
+            cache = model.init_decode_cache(tokens.shape[0], max_len)
+            logits, cache = model.decode(tokens, enc_out, cache=cache,
+                                         logits_slice=1, attention=attention)
+            return logits, cache, enc_out
+        return prefill_encdec
+
     @torch.no_grad()
-    def prefill(model, tokens, attention=None):
+    def prefill(model, tokens, embeds=None, attention=None):
         cache = model.init_decode_cache(tokens.shape[0], max_len)
         logits, _, cache = model(tokens, cache=cache, logits_slice=1,
-                                 attention=attention)
+                                 attention=attention, embeds=embeds)
         return logits, cache
     return prefill
 
 
 def make_decode_step(cfg):
-    """decode(model, cache, tokens (B, 1)) -> (logits (B, 1, V), cache)."""
+    """decode(model, cache, tokens (B, 1)) -> (logits (B, 1, V), cache);
+    for an encoder-decoder decode(model, cache, enc_out, tokens,
+    attention=None), `attention` replacing ops.flash_attention in the
+    cross-attention (which runs the kernel at Sq = 1 against every
+    frame)."""
     check_supported(cfg)
+
+    if cfg.encdec:
+        @torch.no_grad()
+        def decode_encdec(model, cache, enc_out, tokens, attention=None):
+            return model.decode(tokens, enc_out, cache=cache,
+                                attention=attention)
+        return decode_encdec
 
     @torch.no_grad()
     def decode(model, cache, tokens):

@@ -8,7 +8,11 @@ repro.launch.train).
       --shape train_4k --batch 2 --steps 3 --lr 1e-4
 
 --reduced runs the smoke-scale variant (CPU-friendly); without it the
-configuration runs at its published widths. --shape NAME applies the
+configuration runs at its published widths. Every family but xLSTM:
+whisper's batches carry frame embeddings (B, enc_seq, d) and a VLM's its
+patch embeddings (B, vis_tokens, d), both 0.1 x standard normal drawn
+from the run's generator as the reference's stubs, and a VLM's sequence
+is at least vis_tokens + 16 tokens. --shape NAME applies the
 reference's per-shape settings (`steps.cfg_for_shape`: train_4k turns on
 remat) and, unless --seq is given, that shape's sequence length; the
 batch stays --batch.
@@ -38,7 +42,7 @@ from ..core import federated
 from ..data.lm_data import MarkovLMData
 from ..device import resolve_device
 from ..kernels import flash_attention as F
-from ..models import LM
+from ..models import build_model
 from ..models.convert import lm_tree_to_jax
 from ..models.lm import check_supported
 from .mesh import make_agent_mesh
@@ -75,11 +79,24 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def make_batch(data, batch: int, seq: int, device):
-    """One (tokens, labels) batch of `data` as int64 tensors on `device`."""
+def make_batch(data, batch: int, seq: int, device, cfg=None,
+               generator=None):
+    """One (tokens, labels) batch of `data` as int64 tensors on `device`;
+    with `cfg` an encoder-decoder's batch also carries frames (B,
+    enc_seq, d) and a VLM's embeds (B, vis_tokens, d), 0.1 x standard
+    normal float32 drawn from `generator` (on its device), as the
+    reference's
+    `make_batch` draws them."""
     toks, labels = data.batch(batch, seq)
-    return {"tokens": torch.from_numpy(toks).to(device, torch.int64),
-            "labels": torch.from_numpy(labels).to(device, torch.int64)}
+    out = {"tokens": torch.from_numpy(toks).to(device, torch.int64),
+           "labels": torch.from_numpy(labels).to(device, torch.int64)}
+    if cfg is not None and (cfg.encdec or cfg.vis_tokens):
+        n = cfg.enc_seq if cfg.encdec else cfg.vis_tokens
+        at = generator.device if generator is not None else device
+        out["frames" if cfg.encdec else "embeds"] = (0.1 * torch.randn(
+            (batch, n, cfg.d_model), generator=generator, device=at)) \
+            .to(device)
+    return out
 
 
 def _sync(device) -> None:
@@ -117,8 +134,10 @@ def run(args):
         cfg = cfg_for_shape(cfg, args.shape)
         seq = args.seq or SHAPES[args.shape]["seq"]
     check_supported(cfg)
+    if cfg.vis_tokens:
+        seq = max(seq, cfg.vis_tokens + 16)
     gen = torch.Generator(dev).manual_seed(args.seed)
-    model = LM(cfg, device=dev, generator=gen)
+    model = build_model(cfg, device=dev, generator=gen)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{cfg.name}: {n_params / 1e6:.1f}M params, "
           f"consensus={args.consensus}")
@@ -142,7 +161,7 @@ def run(args):
         data = MarkovLMData(cfg.vocab_size, seed=0)
         out["tokens_per_step"] = args.batch * seq
         for s in range(args.steps):
-            batch = make_batch(data, args.batch, seq, dev)
+            batch = make_batch(data, args.batch, seq, dev, cfg, gen)
             opt_state, loss, _ = timed(
                 lambda: step_fn(model, opt_state, batch))
             out["losses"].append(float(loss))
@@ -169,7 +188,7 @@ def run(args):
         out["tokens_per_step"] = M * args.batch * seq
         out["disagreement"] = []
         for s in range(args.steps):
-            batches = [make_batch(d, args.batch, seq, devices[a])
+            batches = [make_batch(d, args.batch, seq, devices[a], cfg, gen)
                        for a, d in enumerate(datas)]
             duals, loss = timed(lambda: step_fn(models, duals, batches))
             out["losses"].append(float(loss))

@@ -3,9 +3,11 @@
 
 Layout: activations (B, S, d); q/k/v (B, S, H|KH, hd); the weights keep the
 reference's layout, wq (d, H, hd), wk and wv (d, KH, hd), wo (H, hd, d).
-The attention inner product of a prefill or a forward pass runs through
-kernels/ops.flash_attention (the hand-written CUDA kernel on the card, its
-plain version on the CPU). Decode (Sq == 1 with a cache) runs the plain
+The attention inner product of a prefill, a forward pass or a
+cross-attention (k and v from `kv_x`, every source position admitted,
+decode steps included) runs through kernels/ops.flash_attention (the
+hand-written CUDA kernel on the card, its plain version on the CPU).
+Cached decode (Sq == 1 with a cache) runs the plain
 `_decode_attention` over the whole cache, as the reference does: it is a
 GEMV over the cache, not a kernel of the reference.
 """
@@ -44,22 +46,29 @@ class Attention(nn.Module):
             w.normal_(0.0, init_scale("normal", w.shape[0]),
                       generator=generator)
 
-    def forward(self, x, positions, cache=None, attention=None):
+    def forward(self, x, positions, cache=None, attention=None,
+                causal: bool = True, kv_x=None):
         """Returns (out (B, S, d), new_cache).
 
         cache: dict(k, v (B, S_max, KH, hd), index int) for autoregressive
         decode; its k and v are written in place at [index, index + S) and
-        the returned dict carries index + S. `attention` replaces
-        ops.flash_attention (same signature) for the prefill and forward
-        products, e.g. with the kernel's plain version."""
+        the returned dict carries index + S. kv_x (B, S_kv, d): the
+        cross-attention source (encoder states), from which k and v are
+        projected; it takes no rope and no mask (every query sees every
+        source position) and is never cached, as in the reference.
+        `causal=False` drops the causal mask of self-attention (the
+        encoder). `attention` replaces ops.flash_attention (same
+        signature) for the prefill and forward products, e.g. with the
+        kernel's plain version."""
         B, S, _ = x.shape
         cfg = self.cfg
         hd = cfg.resolved_head_dim
+        src = x if kv_x is None else kv_x
         q = torch.einsum("bsd,dhk->bshk", x, self.wq)
-        k = torch.einsum("bsd,dhk->bshk", x, self.wk)
-        v = torch.einsum("bsd,dhk->bshk", x, self.wv)
+        k = torch.einsum("bsd,dhk->bshk", src, self.wk)
+        v = torch.einsum("bsd,dhk->bshk", src, self.wv)
 
-        if cfg.rope != "none":
+        if cfg.rope != "none" and kv_x is None:
             frac = 0.5 if cfg.rope == "half" else 1.0
             cos, sin, rot = rope_freqs(hd, positions, cfg.rope_theta, frac)
             q = apply_rope(q, cos, sin, rot)
@@ -85,7 +94,7 @@ class Attention(nn.Module):
             out = _decode_attention(qt, kt, vt, cache["index"], window)
         else:
             out = (attention or ops.flash_attention)(
-                qt, kt, vt, causal=True, window=window)
+                qt, kt, vt, causal=causal and kv_x is None, window=window)
         out = out.transpose(1, 2)                   # (B, S, H, hd)
         return torch.einsum("bshk,hkd->bsd", out, self.wo), new_cache
 

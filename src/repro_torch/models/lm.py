@@ -1,14 +1,32 @@
-"""Decoder-only language model, dense transformer family (counterpart of
-repro.models.lm).
+"""Decoder-only language model: the dense and MoE transformer, the jamba
+hybrid and the VLM patch prefix (counterpart of repro.models.lm).
 
     model = LM(cfg, device=..., generator=torch.Generator().manual_seed(0))
-    logits, aux, cache = model(tokens, cache=..., logits_slice=1)
+    logits, aux, cache = model(tokens, embeds=..., cache=..., logits_slice=1)
     loss, aux = loss_fn(cfg, model, batch)
 
-The reference stacks its layers for `jax.lax.scan` (parameters carry
-leading (n_groups, 1) axes); here they are an `nn.ModuleList` of blocks,
-one per layer, and models/convert.py maps one layout onto the other.
-Each block is pre-norm: x + attn(rmsnorm(x)), then x + mlp(rmsnorm(x)).
+The reference stacks its layers for `jax.lax.scan`; here they are one
+`nn.ModuleList` of blocks in the order the reference runs them, and
+`layer_plan(cfg)` says where each block sits in the reference's stacked
+tree (models/convert.py maps one layout onto the other):
+
+  transformer   groups of `moe_every` layers (1 without experts): k - 1
+                dense layers, then one MoE layer (`blocks.dense` stacked
+                (n_groups, k - 1), `blocks.moe` (n_groups,)); a dense
+                model is groups of one dense layer.
+  jamba         superblocks of `attention_every` layers: one attention
+                layer with a dense MLP, then n_moe mamba + MoE layers,
+                then the remaining mamba layers (`_jamba_split`). This is
+                the reference's composition order, not Jamba's published
+                interleave; the layer counts are the same.
+
+Each attention block is pre-norm: x + attn(rmsnorm(x)), then x +
+ffn(rmsnorm(x)) with the FFN an MLP or an MoE; a mamba block is x +
+mamba(rmsnorm(x)), then with an MoE x + moe(rmsnorm(x)). `embeds` (B, P,
+d), the VLM's patch embeddings, go before the token embeddings, and
+positions run over the whole stream; `loss_fn` pads their labels with -1.
+A decode cache holds k/v for every attention layer and {conv, h} for
+every mamba layer, and one index over prefix and prompt.
 
 With `cfg.remat` a training forward (grad mode on, no cache) runs each
 block under `torch.utils.checkpoint` (non-reentrant), as the reference
@@ -18,10 +36,10 @@ recomputed in the backward, its attention kernel launched again.
 (the reference's `dots_with_no_batch_dims_saveable`) and recomputes the
 rest.
 
-Not yet ported: the MoE FFN, the jamba and xLSTM block families, the
-whisper encoder-decoder and the VLM patch prefix (ROADMAP A11c).
-`act_sharding.constrain` is a no-op without a mesh in the reference and
-belongs to the multi-GPU work (ROADMAP A7b).
+Not yet ported: the xLSTM block family (ROADMAP A11c). The whisper
+encoder-decoder is models/encdec.py's `EncDec`. `act_sharding.constrain`
+is a no-op without a mesh in the reference and belongs to the multi-GPU
+work (ROADMAP A7b).
 """
 from __future__ import annotations
 
@@ -34,23 +52,52 @@ from torch.utils import checkpoint as _ckpt
 from ..device import resolve_device
 from .attention import Attention, init_cache
 from .common import RMSNorm, cross_entropy, gelu_mlp, init_scale, swiglu
+from .mamba import Mamba, init_mamba_state
+from .moe import MoE
 
 NOT_PORTED = "not yet ported (ROADMAP A11c)"
 
 
 def check_supported(cfg) -> None:
     """Raise NotImplementedError for a family the port does not run yet."""
-    if cfg.encdec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder LM is "
+    if cfg.block_type == "xlstm":
+        raise NotImplementedError(f"{cfg.name}: xlstm blocks are "
                                   f"{NOT_PORTED}")
-    if cfg.block_type != "transformer":
-        raise NotImplementedError(f"{cfg.name}: {cfg.block_type} blocks are "
-                                  f"{NOT_PORTED}")
-    if cfg.num_experts:
-        raise NotImplementedError(f"{cfg.name}: the MoE FFN is {NOT_PORTED}")
-    if cfg.vis_tokens:
-        raise NotImplementedError(f"{cfg.name}: the VLM patch prefix is "
-                                  f"{NOT_PORTED}")
+    if cfg.block_type not in ("transformer", "jamba"):
+        raise ValueError(f"{cfg.name}: unknown block type {cfg.block_type}")
+
+
+def _jamba_split(cfg):
+    """(n_groups, n_moe_mamba, n_dense_mamba) per superblock."""
+    k = cfg.attention_every
+    n_groups = cfg.num_layers // k
+    n_mamba = k - 1
+    n_moe = (n_mamba + 1) // 2 if cfg.num_experts else 0
+    return n_groups, n_moe, n_mamba - n_moe
+
+
+def layer_plan(cfg) -> list:
+    """One (kind, key, group, index) per layer in execution order: kind is
+    "attn" (attention + MLP), "attn_moe", "mamba" or "mamba_moe"; the
+    layer's leaves sit at blocks[key][...][group] of the reference's tree,
+    then [index] when the key stacks several layers a group (index None
+    when it holds one)."""
+    check_supported(cfg)
+    plan = []
+    if cfg.block_type == "transformer":
+        if not cfg.num_experts:
+            return [("attn", "dense", g, 0) for g in range(cfg.num_layers)]
+        k = cfg.moe_every
+        for g in range(cfg.num_layers // k):
+            plan += [("attn", "dense", g, i) for i in range(k - 1)]
+            plan.append(("attn_moe", "moe", g, None))
+        return plan
+    n_groups, n_moe, n_dense = _jamba_split(cfg)
+    for g in range(n_groups):
+        plan.append(("attn", "attn", g, None))
+        plan += [("mamba_moe", "mamba_moe", g, i) for i in range(n_moe)]
+        plan += [("mamba", "mamba_dense", g, i) for i in range(n_dense)]
+    return plan
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -89,46 +136,105 @@ class MLP(nn.Module):
         return gelu_mlp(x, self.w1, self.w2)
 
 
-class Block(nn.Module):
-    """One dense transformer layer: ln1, attn, ln2, mlp."""
+def _zero_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def __init__(self, cfg, dtype=torch.float32, device=None):
+
+class Block(nn.Module):
+    """One attention layer: ln1, attn, ln2, then mlp or (moe=True) moe."""
+
+    def __init__(self, cfg, dtype=torch.float32, device=None,
+                 moe: bool = False):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
         self.attn = Attention(cfg, dtype, device)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
-        self.mlp = MLP(cfg, dtype, device)
+        if moe:
+            self.moe = MoE(cfg, dtype, device)
+        else:
+            self.mlp = MLP(cfg, dtype, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.attn.reset_parameters(generator)
+        (self.moe if hasattr(self, "moe") else self.mlp) \
+            .reset_parameters(generator)
 
     def forward(self, x, positions, cache=None, attention=None):
+        """Returns (x, new_cache, aux)."""
         h, new_cache = self.attn(self.ln1(x), positions, cache,
                                  attention=attention)
         x = x + h
-        return x + self.mlp(self.ln2(x)), new_cache
+        y = self.ln2(x)
+        if hasattr(self, "moe"):
+            out, aux = self.moe(y)
+        else:
+            out, aux = self.mlp(y), _zero_aux(x)
+        return x + out, new_cache, aux
+
+
+class MambaBlock(nn.Module):
+    """One mamba layer: ln1, mamba, and with moe=True ln2, moe."""
+
+    def __init__(self, cfg, dtype=torch.float32, device=None,
+                 moe: bool = False):
+        super().__init__()
+        self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.mamba = Mamba(cfg, dtype, device)
+        if moe:
+            self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+            self.moe = MoE(cfg, dtype, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.mamba.reset_parameters(generator)
+        if hasattr(self, "moe"):
+            self.moe.reset_parameters(generator)
+
+    def forward(self, x, positions=None, state=None, attention=None):
+        """Returns (x, new_state, aux); positions and attention are not
+        used (the signature is Block's)."""
+        h, new_state = self.mamba(self.ln1(x), state)
+        x = x + h
+        if hasattr(self, "moe"):
+            out, aux = self.moe(self.ln2(x))
+            return x + out, new_state, aux
+        return x, new_state, _zero_aux(x)
+
+
+_BLOCKS = {"attn": (Block, False), "attn_moe": (Block, True),
+           "mamba": (MambaBlock, False), "mamba_moe": (MambaBlock, True)}
 
 
 class LM(nn.Module):
-    """Dense decoder-only LM: embed, blocks, final_norm, lm_head (untied
-    unless cfg.tie_embeddings).
+    """Decoder-only LM: embed, blocks, final_norm, lm_head (untied unless
+    cfg.tie_embeddings).
 
     Runs on `cuda` unless `device` says otherwise (`resolve_device`).
     Parameters are drawn from `generator` (a torch.Generator on `device`,
-    or None for torch's default) with the reference's initial scales:
-    normal with standard deviation 0.02 for the embedding, 1 / sqrt(fan_in)
-    for the projections (fan_in the parameter's first axis), ones for the
-    norms. `init=False` leaves them uninitialized, for a caller that loads
-    them (models/convert.py)."""
+    or None for torch's default) with the reference's initializers:
+    normal with standard deviation 0.02 for the embedding, the router and
+    A_log, 1 / sqrt(fan_in) for the projections (fan_in the axis the
+    reference's ParamDef names), ones for the norms and D, zeros for the
+    mamba biases. `init=False` leaves them uninitialized, for a caller
+    that loads them (models/convert.py)."""
 
     def __init__(self, cfg, device=None, dtype=torch.float32,
                  generator=None, init: bool = True):
         super().__init__()
-        check_supported(cfg)
+        if cfg.encdec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: build it "
+                             f"with models.EncDec (models.build_model)")
+        self.plan = layer_plan(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         d, V = cfg.d_model, cfg.vocab_size
         self.embed = nn.Parameter(torch.empty((V, d), dtype=dtype,
                                               device=device))
-        self.blocks = nn.ModuleList(Block(cfg, dtype, device)
-                                    for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList()
+        for kind, *_ in self.plan:
+            cls, moe = _BLOCKS[kind]
+            self.blocks.append(cls(cfg, dtype, device, moe=moe))
         self.final_norm = RMSNorm(d, cfg.norm_eps, dtype, device)
         self.lm_head = (None if cfg.tie_embeddings else nn.Parameter(
             torch.empty((d, V), dtype=dtype, device=device)))
@@ -140,8 +246,7 @@ class LM(nn.Module):
         self.embed.normal_(0.0, init_scale("small_normal", 0),
                            generator=generator)
         for blk in self.blocks:
-            blk.attn.reset_parameters(generator)
-            blk.mlp.reset_parameters(generator)
+            blk.reset_parameters(generator)
         if self.lm_head is not None:
             self.lm_head.normal_(0.0, init_scale("normal", self.cfg.d_model),
                                  generator=generator)
@@ -151,16 +256,21 @@ class LM(nn.Module):
         return self.embed.device
 
     def forward(self, tokens, cache=None, positions=None,
-                logits_slice: int = 0, attention=None):
-        """tokens (B, S) int -> (logits (B, S or logits_slice, V), aux, cache).
+                logits_slice: int = 0, attention=None, embeds=None):
+        """tokens (B, S) int -> (logits (B, P + S or logits_slice, V), aux,
+        cache).
 
-        cache: `init_decode_cache` for autoregressive decode; its per-layer
-        k/v are written in place and the returned cache carries index + S.
-        aux is the reference's MoE auxiliary loss, 0 for a dense model.
+        embeds (B, P, d): the VLM's patch prefix, placed before the
+        tokens. cache: `init_decode_cache` for autoregressive decode; its
+        attention layers' k/v are written in place, its mamba states
+        replaced, and the returned cache carries index + P + S. aux is the
+        MoE layers' auxiliary loss summed (float32; 0 without experts).
         `attention` replaces ops.flash_attention in every layer (same
         signature). With `cfg.remat`, grad mode on and no cache, each
         block runs under activation checkpointing."""
         x = self.embed[tokens]
+        if embeds is not None:
+            x = torch.cat([embeds.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         if positions is None:
             start = cache["index"] if cache is not None else 0
@@ -173,52 +283,78 @@ class LM(nn.Module):
         context_fn = (functools.partial(
             _ckpt.create_selective_checkpoint_contexts, _dots_policy)
             if remat == "dots" else _ckpt.noop_context_fn)
+        aux = _zero_aux(x)
         new_layers = []
         for blk, layer_cache in zip(self.blocks, layers):
             if remat:
-                x, c = _ckpt.checkpoint(blk, x, positions, None, attention,
-                                        use_reentrant=False,
-                                        context_fn=context_fn)
+                x, c, a = _ckpt.checkpoint(blk, x, positions, None,
+                                           attention, use_reentrant=False,
+                                           context_fn=context_fn)
             else:
-                x, c = blk(x, positions, layer_cache, attention)
+                x, c, a = blk(x, positions, layer_cache, attention)
+            aux = aux + a
             new_layers.append(c)
         x = self.final_norm(x)
         if logits_slice:
             x = x[:, -logits_slice:]
         head = self.embed.T if self.lm_head is None else self.lm_head
         logits = x @ head
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_cache = ({"layers": new_layers, "index": cache["index"] + S}
                      if cache is not None else None)
         return logits, aux, new_cache
 
     def init_decode_cache(self, batch: int, max_len: int):
-        """Zeroed per-layer k/v caches (B, max_len, KH, hd) in the
-        parameters' dtype, and index 0."""
-        return {"layers": [init_cache(self.cfg, batch, max_len,
-                                      self.embed.dtype, self.device)
-                           for _ in self.blocks],
-                "index": 0}
+        """Zeroed decode state in the parameters' dtype, index 0: k/v
+        (B, max_len, KH, hd) for an attention layer, conv (B, dc - 1, di)
+        and h (B, di, ds) float32 for a mamba layer."""
+        dt, dev = self.embed.dtype, self.device
+        return {"layers": [
+            init_cache(self.cfg, batch, max_len, dt, dev)
+            if kind.startswith("attn") else
+            init_mamba_state(self.cfg, batch, dt, dev)
+            for kind, *_ in self.plan], "index": 0}
 
 
 def loss_fn(cfg, model, batch, aux_weight: float = 0.01, attention=None):
     """(loss, {"ce", "aux"}) of `model` on batch = dict(tokens (B, S),
-    labels (B, S)); labels < 0 are ignored. Counterpart of the reference's
-    `lm.loss_fn(cfg, params, batch)`, the module standing where the
-    parameters stand (its own cfg decides the remat, as the reference's
-    `cfg` does); `attention` replaces ops.flash_attention in every layer,
-    as in `LM.forward`. The VLM prefix is not yet ported (A11c)."""
+    labels (B, S), [embeds (B, P, d)]); labels < 0 are ignored, and the
+    patch prefix's positions get label -1. Counterpart of the
+    reference's `lm.loss_fn(cfg, params, batch)`, the module standing
+    where the parameters stand (its own cfg decides the remat, as the
+    reference's `cfg` does); `attention` replaces ops.flash_attention in
+    every layer, as in `LM.forward`."""
     check_supported(cfg)
-    logits, aux, _ = model(batch["tokens"], attention=attention)
-    ce = cross_entropy(logits, batch["labels"])
+    embeds = batch.get("embeds")
+    logits, aux, _ = model(batch["tokens"], attention=attention,
+                           embeds=embeds)
+    labels = batch["labels"]
+    if embeds is not None:
+        pad = torch.full(embeds.shape[:2], -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    ce = cross_entropy(logits, labels)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
-def param_count(cfg) -> int:
-    """Parameters of the dense LM of `cfg`."""
+def _sizes(cfg) -> dict:
+    """Parameters of one layer of each kind and of the norms' vector."""
     d, H, KH, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
+    attn = d * hd * (2 * H + 2 * KH)
     mlp = (3 if cfg.mlp_act == "swiglu" else 2) * d * cfg.d_ff
-    layer = 2 * d + d * hd * (2 * H + 2 * KH) + mlp
-    head = 0 if cfg.tie_embeddings else d * cfg.vocab_size
-    return cfg.vocab_size * d + cfg.num_layers * layer + d + head
+    moe = d * cfg.num_experts + 3 * cfg.num_experts * d * cfg.d_ff
+    di, ds, dc = cfg.d_inner_mamba, cfg.mamba_d_state, cfg.mamba_d_conv
+    dtr = max(d // 16, 1)
+    mamba = (d * 2 * di + dc * di + di + di * (dtr + 2 * ds) + dtr * di
+             + di + di * ds + di + di * d)
+    return {"attn": 2 * d + attn + mlp, "attn_moe": 2 * d + attn + moe,
+            "mamba": d + mamba, "mamba_moe": 2 * d + mamba + moe}
+
+
+def param_count(cfg) -> int:
+    """Parameters of the decoder-only LM of `cfg` (every family but
+    xLSTM and the encoder-decoder)."""
+    sizes = _sizes(cfg)
+    head = 0 if cfg.tie_embeddings else cfg.d_model * cfg.vocab_size
+    return (cfg.vocab_size * cfg.d_model + sum(
+        sizes[kind] for kind, *_ in layer_plan(cfg)) + cfg.d_model + head)

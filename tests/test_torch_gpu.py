@@ -699,7 +699,16 @@ FLASH_CASES = [
     (1, 4, 2, 191, 191, 32, True, None, torch.bfloat16),
     (1, 4, 2, 129, 300, 64, True, None, torch.float32),
     (1, 4, 2, 640, 640, 128, True, 100, torch.float32),
-    (1, 8, 2, 300, 300, 128, True, None, torch.bfloat16)]
+    (1, 8, 2, 300, 300, 128, True, None, torch.bfloat16),
+    # the LM families' modes: whisper's cross-attention with more queries
+    # than keys (no mask) and at a decode step, GQA 6 (dbrx) in bf16 and
+    # float32 with Sq > Sk, GQA 8 (internvl2)
+    (2, 12, 12, 300, 150, 64, False, None, torch.float32),
+    (2, 12, 12, 1, 1500, 64, False, None, torch.float32),
+    (1, 12, 2, 257, 200, 128, False, None, torch.bfloat16),
+    (1, 12, 2, 200, 130, 128, False, None, torch.float32),
+    (2, 48, 8, 300, 300, 128, True, None, torch.bfloat16),
+    (1, 64, 8, 150, 150, 128, True, None, torch.float32)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -733,6 +742,8 @@ def test_flash_attention_kernel_refuses_float16_and_sq_above_sk(cuda):
     kv = torch.zeros(1, 2, 8, 64, device=cuda)
     with pytest.raises(ValueError, match="no admitted key"):
         ops.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="no admitted key"):
+        ops.flash_attention(q, kv, kv, causal=False, window=4)
 
 
 def test_lm_serves_through_flash_attention_on_the_card(cuda):
@@ -774,7 +785,8 @@ def test_serve_lm_on_the_card(cuda, capsys):
     serve.main(["--arch", "internlm2-1.8b", "--reduced", "--batch", "2",
                 "--prompt-len", "64", "--gen", "4"])
     out = capsys.readouterr().out
-    assert "on cuda" in out and "2 in the prefill (2 layers)" in out
+    assert "on cuda" in out and \
+        "2 in the prefill (2 attention layers)" in out
 
 
 # the training path's attention (B, H, KH, Sq, Sk, D, causal, window,
@@ -784,7 +796,8 @@ FLASH_GRAD_CASES = [
     (1, 8, 2, 300, 300, 64, True, 100, torch.float32),
     (1, 4, 2, 129, 300, 64, True, None, torch.float32),
     (1, 4, 4, 191, 191, 32, False, None, torch.float32),
-    (2, 8, 4, 256, 256, 128, True, None, torch.bfloat16)]
+    (2, 8, 4, 256, 256, 128, True, None, torch.bfloat16),
+    (1, 6, 1, 300, 150, 64, False, None, torch.float32)]
 # gradients, max |error| relative to max |plain gradient|: the same
 # backward on both sides, fed the kernel's out and lse (float32 rounding)
 # or bf16 outputs rounded to 8 bits
@@ -908,3 +921,59 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
         sat = (want - p0[n]).abs() >= lr / 2
         assert torch.allclose(got[sat], want[sat], rtol=2e-3, atol=2e-4), n
         assert float((got - want).abs().max()) <= 2 * lr
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b",
+                                  "jamba-v0.1-52b", "internvl2-76b",
+                                  "whisper-small"])
+def test_lm_families_serve_on_the_card_as_on_the_cpu(cuda, arch):
+    """The reduced MoE, jamba, VLM and whisper models (jamba at 4 layers:
+    both mamba kinds) served on the card and on the CPU from the same
+    float32 weights and inputs: the kernel launched once per attention
+    product of the prefill (and, for whisper, once per decoder layer a
+    decode step), prefill and decode logits within 1e-4 of max |logit|,
+    the CPU's greedy tokens fed to both."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced(
+        layers=4 if arch.startswith("jamba") else 2)
+    cpu = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(cuda)
+    frames, embeds = serve.stub_inputs(cfg, 2, torch.Generator()
+                                       .manual_seed(1), "cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40),
+                            generator=torch.Generator().manual_seed(2))
+    G = 4
+    pre = steps.make_prefill_step(cfg, 40 + G + cfg.vis_tokens + 1)
+    dec = steps.make_decode_step(cfg)
+    outs = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        before = F.launches
+        if cfg.encdec:
+            logits, cache, enc = pre(model, frames.to(dev), prompts.to(dev))
+        else:
+            logits, cache = pre(model, prompts.to(dev),
+                                None if embeds is None else embeds.to(dev))
+        seen = [logits[:, -1].float().cpu()]
+        launches = [F.launches - before]
+        for step in range(G):
+            tok = outs["cpu"][step].argmax(-1)[:, None].to(dev) \
+                if name == "card" else seen[-1].argmax(-1)[:, None]
+            before = F.launches
+            if cfg.encdec:
+                logits, cache = dec(model, cache, enc, tok)
+            else:
+                logits, cache = dec(model, cache, tok)
+            launches.append(F.launches - before)
+            seen.append(logits[:, -1].float().cpu())
+        outs[name] = seen
+        outs[name + "_launches"] = launches
+    attn = serve.attention_layers(cfg)
+    per_step = cfg.num_layers if cfg.encdec else 0
+    assert outs["card_launches"] == [attn] + [per_step] * G
+    for got, want in zip(outs["card"], outs["cpu"]):
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())

@@ -505,23 +505,37 @@ def test_lm_serving_defaults_to_the_card(no_card):
                                   "jamba-v0.1-52b", "xlstm-350m",
                                   "llama4-maverick-400b-a17b",
                                   "internvl2-76b"])
-def test_unported_lm_families_say_not_yet_ported(arch):
-    """MoE, jamba, xLSTM, the encoder-decoder and the VLM prefix name
-    their ROADMAP item; the dense configurations build."""
+def test_lm_families_run_or_name_their_roadmap_item(arch, capsys):
+    """xLSTM still names its ROADMAP item from the model, both steps and
+    both launchers; MoE, jamba, the VLM prefix and the encoder-decoder
+    serve a few tokens and take a training step on the CPU."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve, steps, train
-    from repro_torch.models import LM
+    from repro_torch.models import LM, build_model
     cfg = get_config(arch).reduced()
+    if arch != "xlstm-350m":
+        build_model(cfg, device="cpu")
+        serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                    "--batch", "2", "--prompt-len", "8", "--gen", "2"])
+        train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                    "--steps", "1", "--batch", "2", "--seq", "16"])
+        text = capsys.readouterr().out
+        assert "decoded 2 tokens/seq" in text and "step    0 loss" in text
+        return
     with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
         LM(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
         steps.make_prefill_step(cfg, 8)
+    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
+        steps.make_decode_step(cfg)
     with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
         serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
         train.main(["--arch", arch, "--reduced", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
         steps.make_train_step(cfg, None)
+    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
+        steps.make_federated_train_step(cfg, n_agents=2)
     for dense in ("internlm2-1.8b", "chatglm3-6b", "granite-3-8b",
                   "phi3-medium-14b"):
         LM(get_config(dense).reduced(), device="cpu")

@@ -22,6 +22,7 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.flash_jnp import flash_attention_jnp
 from repro.launch.steps import make_decode_step, make_prefill_step
 from repro.models import attention as jattention
 from repro.models import common as jcommon
@@ -134,6 +135,45 @@ def test_flash_attention_plain_refuses_bad_shapes(bad, match):
         F.flash_attention_plain(q, k, v, True, window)
     with pytest.raises(ValueError, match=match):
         ops.flash_attention(q, k, v, window=window)
+
+
+@pytest.mark.parametrize("b,h,kh,sq,sk,d,chunk", [
+    (2, 4, 4, 96, 40, 64, 16),        # whisper's cross-attention, MHA
+    (1, 6, 1, 70, 48, 32, 48)])       # GQA 6, one chunk
+def test_noncausal_attention_with_more_queries_than_keys(b, h, kh, sq, sk,
+                                                         d, chunk):
+    """Sq > Sk without a mask (the whisper decoder's cross-attention over
+    a prompt longer than its frames): every query admits every key. The
+    plain version, the op, the kernel's split-TF32 arithmetic and the
+    Function's gradients (its chunked backward, ragged chunks at 16)
+    against the reference's flash_attention_jnp and its jax.vjp (a chunk
+    of Sk, which its op hands it); causal or windowed, the shape is still
+    refused."""
+    q, k, v = _qkv(b, h, kh, sq, sk, d, 8)
+    do = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+
+    @jax.jit
+    def ref(q, k, v, do):
+        out, vjp = jax.vjp(
+            lambda *a: flash_attention_jnp(*a, False, None, sk), q, k, v)
+        return out, vjp(do)
+    want, want_grads = ref(*(jnp.asarray(a) for a in (q, k, v, do)))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    for got in (F.flash_attention_plain(tq, tk, tv, False),
+                ops.flash_attention(tq, tk, tv, causal=False),
+                F.flash_attention_split_tf32(tq, tk, tv, False)):
+        assert got.shape == (b, h, sq, d)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=F32_TOL, atol=F32_TOL)
+    qkv = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = F.FlashAttentionFunction.apply(*qkv, False, None, None, chunk)
+    grads = torch.autograd.grad(out, qkv, torch.from_numpy(do))
+    for g, w in zip(grads, want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-5)
+    for causal, window in ((True, None), (False, 8)):
+        with pytest.raises(ValueError, match="no admitted key"):
+            F.flash_attention_plain(tq, tk, tv, causal, window)
 
 
 def test_flash_attention_first_blocks_masked_are_finite():

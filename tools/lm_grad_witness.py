@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """How far the LM's float32 gradients on the card are from float64.
 
-    python3 tools/lm_grad_witness.py [--batch 1] [--seq 4096] [--seed 0]
+    python3 tools/lm_grad_witness.py [--arch internlm2-1.8b] [--batch 1]
+                                     [--seq 4096] [--seed 0]
 
-internlm2-1.8b at its published widths and depth with the reference's
-train_4k settings (remat), float32 weights drawn from --seed, one batch of
-MarkovLMData (seed 1). It computes the gradient of `lm.loss_fn` four ways
-and prints, for each kind of parameter (its name without the layer
-index), the largest max |g - g64| / max |g64| over the layers (every
-attention weight and norm, the embedding and the head, the MLP of layers
-0, 12 and 23: the rest is not kept, to fit the card):
+internlm2-1.8b (or --arch whisper-small, the encoder-decoder, with its
+1,500 frames drawn from the seed) at its published widths and depth with
+the reference's train_4k settings (remat), float32 weights drawn from
+--seed, one batch of MarkovLMData (seed 1). It computes the gradient of
+the family's loss four ways (three for whisper: its non-causal and
+cross-attention have no kernel_delta_from_out variant here) and prints,
+for each kind of parameter (its name without the layer index), the
+largest max |g - g64| / max |g64| over the layers (every attention
+weight and norm, the embedding and the head, the MLP of internlm2's
+layers 0, 12 and 23: the rest is not kept, to fit the card):
 
   kernel          the port as it runs: the flash_attention kernel forward
                   under FlashAttentionFunction, whose backward forms
@@ -39,7 +43,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-ARCH = "internlm2-1.8b"
+ARCHS = ("internlm2-1.8b", "whisper-small")
 
 
 def _kept(name: str) -> bool:
@@ -50,7 +54,9 @@ def _kept(name: str) -> bool:
 
 def _kind(name: str) -> str:
     parts = name.split(".")
-    return ".".join(parts[2:]) if parts[0] == "blocks" else name
+    if parts[0] in ("blocks", "enc_blocks", "dec_blocks"):
+        return ".".join(parts[:1] * (parts[0] != "blocks") + parts[2:])
+    return name
 
 
 def main(argv=None) -> int:
@@ -58,6 +64,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--arch", default=ARCHS[0], choices=ARCHS)
     args = ap.parse_args(argv)
     import torch
     from repro_torch.configs import get_config
@@ -65,16 +72,17 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_attention as F
     from repro_torch.launch import train
     from repro_torch.launch.steps import cfg_for_shape
-    from repro_torch.models import LM, common, lm
+    from repro_torch.models import build_model, common, encdec, lm
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
-    cfg = cfg_for_shape(get_config(ARCH), "train_4k")
-    model = LM(cfg, device=dev,
-               generator=torch.Generator(dev).manual_seed(args.seed))
+    cfg = cfg_for_shape(get_config(args.arch), "train_4k")
+    gen = torch.Generator(dev).manual_seed(args.seed)
+    model = build_model(cfg, device=dev, generator=gen)
     batch = train.make_batch(MarkovLMData(cfg.vocab_size, seed=1),
-                             args.batch, args.seq, dev)
+                             args.batch, args.seq, dev, cfg, gen)
+    family = encdec if cfg.encdec else lm
 
     class DeltaFromOut(torch.autograd.Function):
         """The kernel forward, the reference's delta = sum dout * out."""
@@ -99,16 +107,17 @@ def main(argv=None) -> int:
 
     def grads(attention):
         model.zero_grad(set_to_none=True)
-        loss, _ = lm.loss_fn(cfg, model, batch, attention=attention)
+        loss, _ = family.loss_fn(cfg, model, batch, attention=attention)
         loss.backward()
         out = {n: p.grad for n, p in model.named_parameters()
                if _kept(n)}
         model.zero_grad(set_to_none=True)
         return float(loss.detach()), out
 
-    runs = {name: grads(att) for name, att in (
-        ("kernel", None), ("kernel_delta_from_out", delta_from_out),
-        ("plain", plain))}
+    ways = [("kernel", None), ("plain", plain)]
+    if not cfg.encdec:
+        ways.insert(1, ("kernel_delta_from_out", delta_from_out))
+    runs = {name: grads(att) for name, att in ways}
     model.double()
     torch.cuda.empty_cache()
 
@@ -120,19 +129,19 @@ def main(argv=None) -> int:
         return (torch.logsumexp(logits, -1) - ll).mean()
 
     def attention64(q, k, v, causal=True, window=None, scale=None):
-        B, H, S, D = q.shape
-        KH = k.shape[1]
+        B, H, Sq, D = q.shape
+        KH, Sk = k.shape[1], k.shape[2]
         g = H // KH
-        s = (q.reshape(B, KH, g * S, D) @ k.transpose(-1, -2)
-             * D ** -0.5).view(B, KH, g, S, S)
-        s = s.masked_fill(~F.mask(S, S, True, None, q.device),
+        s = (q.reshape(B, KH, g * Sq, D) @ k.transpose(-1, -2)
+             * D ** -0.5).view(B, KH, g, Sq, Sk)
+        s = s.masked_fill(~F.mask(Sq, Sk, causal, window, q.device),
                           float("-inf"))
-        return (torch.softmax(s, -1).view(B, KH, g * S, S) @ v).view(
-            B, H, S, D)
+        return (torch.softmax(s, -1).view(B, KH, g * Sq, Sk) @ v).view(
+            B, H, Sq, D)
 
-    common.rmsnorm, lm.cross_entropy = rmsnorm64, cross_entropy64
+    common.rmsnorm, family.cross_entropy = rmsnorm64, cross_entropy64
     loss64, g64 = grads(attention64)
-    report = {"arch": ARCH, "batch": args.batch, "seq": args.seq,
+    report = {"arch": args.arch, "batch": args.batch, "seq": args.seq,
               "loss_float64": loss64,
               "loss": {k: v[0] for k, v in runs.items()},
               "max_rel_err_vs_float64": {}, "kernel_vs_plain": {}}
