@@ -237,7 +237,12 @@ Phases, one JSON line each:
            equal to that run's wherever its top-2 logit gap exceeds the
            tolerance, and prefill + one decode step against the parallel
            forward over 2,049 tokens; it reports prefill ms, decode ms per
-           step, tok/s, peak device memory and the first tokens.
+           step, tok/s, peak device memory and the first tokens. Then the
+           same model placed on make_test_mesh(1, 1) (cuda:0) by its
+           parameters' specs (launch/sharding.py) runs one prefill under
+           use_mesh with constrain live: its logits bit for bit the
+           unplaced prefill's, its kernel launches counted under the path
+           lm:mesh.
   lm_train LM training (after the profile phase, whose LM it frees):
            internlm2-1.8b at full width through the port's train launcher
            (launch.train.run) at the reference's train_4k shape, 4,096
@@ -257,7 +262,7 @@ Phases, one JSON line each:
            of parameters and one batch stream, held to each other
            (LM_TWIN_LOSS_TOL, LM_TWIN_PARAM_TOL). With --profile it traces
            one training step.
-  lm_families the other LM families (last; each model freed before the
+  lm_families the other LM families (each model freed before the
            next) through the serve launcher at their published widths
            (LM_FAMILIES): dbrx-132b (MoE, 16 experts top-4; 4 of 40
            layers), jamba-v0.1-52b (one superblock of 8 layers: attention,
@@ -274,11 +279,26 @@ Phases, one JSON line each:
            layers drop-free for that check), finite logits and the greedy
            tokens as the lm phase does; it reports prefill ms, decode ms
            per step, tok/s and peak memory (with --profile a traced dbrx
-           and jamba prefill). Then the reduced families (with
-           llama4-maverick; jamba at 4 layers) in float32 on the card
-           against the CPU, and one Adam step of whisper-small at full
+           and jamba prefill). xlstm-350m is served whole in float32 (4 x
+           2,048 tokens, 32 steps) with its flash_attention launches
+           gated at 0 (it runs no attention, and is no path of the
+           kernel), prefill + one decode step against the parallel
+           forward and the chunked mLSTM against mlstm_sequential on its
+           first layer's own inputs (XLSTM_CHUNK_TOL). At whisper's worst
+           paired call the kernel and the plain version also run on v
+           centered over the keys (C14). Then the reduced families (with
+           llama4-maverick; jamba at 4 layers; xlstm) in float32 on the
+           card against the CPU, one Adam step of whisper-small at full
            size (train_4k: 2 x 4,096 tokens) whose gradient is held to the
-           plain attention's (WHISPER_GRAD_TOL).
+           plain attention's (WHISPER_GRAD_TOL), and one Adam step of
+           xlstm-350m at train_4k (2 x 4,096 tokens, remat).
+  dryrun   the pod dry run (launch/dryrun.py, last): every arch x
+           supported shape on the 16 x 16 and 2 x 16 x 16 production
+           meshes under the default and dp policies, 39 meta steps traced
+           in DRYRUN_JOBS spawned host processes and 156 records, each
+           ok (whisper-small's long_500k skipped); it reports the
+           per-device GiB and FLOPs of the train_4k rows. Host only by
+           design: a pod that one card cannot be.
 
 The kernels phase also holds flash_attention to its plain version at the
 prefill shape (4, 16/8, 2,048, 128, causal; timed, with PyTorch's
@@ -541,7 +561,29 @@ LM_TRAIN_ATTENTION = (2, 16, 8, 4096, 4096, 128)
 LM_FAMILIES = [("dbrx-132b", 4, "bfloat16", 2, 2048, 16),
                ("jamba-v0.1-52b", 8, "bfloat16", 2, 2048, 16),
                ("internvl2-76b", 8, "bfloat16", 2, 1792, 16),
-               ("whisper-small", None, "float32", 4, 2048, 32)]
+               ("whisper-small", None, "float32", 4, 2048, 32),
+               ("xlstm-350m", None, "float32", 4, 2048, 32)]
+# families that run no attention: served and gated like the others, their
+# flash_attention launches gated at 0 and kept out of the kernel's paths
+NO_ATTENTION = ("xlstm-350m",)
+# the chunked mLSTM (8 chunks of 256) against mlstm_sequential (2,048
+# steps) on the first mLSTM layer's own q, k, v and gates of the xlstm
+# prompt, h and the final (C, n, m) each relative to its max |value|:
+# float32 sums in two orders over 2,048 tokens; on the CPU at these widths
+# (tools/xlstm_witness.py --parts layer) 7.7e-6 for h and 1.3e-5 for m,
+# on the card 1.8e-5 for h, and the gate is about five times that
+XLSTM_CHUNK_TOL = 1e-4
+# xlstm-350m's prefill + decode against the parallel forward, max |error|
+# relative to max |logit|. At its initial weights the model amplifies
+# float32 rounding about 1e4-fold over its 24 blocks (the residual stream
+# grows from 48 to 217 in max |x|, and the mLSTM's h divides by its
+# normalizer): on the CPU (tools/xlstm_witness.py --parts model,reference)
+# prefill + decode reads 4.5e-3, the parallel forward with its embedding
+# scaled by one float32 ulp 4.0e-3, and the JAX package's forward on the
+# same weights 4.4e-3 from the port's. LM_LOGIT_TOL (1e-4) sits below
+# that floor; the card read 6.4e-3, and the gate is about five times it
+# (ROADMAP C16). The ulp probe runs on the card too and is reported
+XLSTM_LOGIT_TOL = 3e-2
 # prefill logits through the kernel against the plain attention, and
 # prefill + decode against the parallel forward, max |error| relative to
 # max |logit|. float32: LM_LOGIT_TOL's reasoning. bf16: both attentions
@@ -557,23 +599,35 @@ LM_FAMILY_TOL = {"float32": LM_LOGIT_TOL, "bfloat16": 3e-2}
 # rounded to 8 bits (FLASH_TOL). float32: the tensor cores' float32
 # accumulation of p v over up to 2,048 keys rounds in units of the running
 # sums, which a common component of v's rows (the model's, not FLASH_CASES'
-# zero-mean random v) makes far larger than the output's spread: whisper-
-# small's worst call, its decoder's causal self-attention with scaled
-# scores below 2, read 2.4e-5 on the card (PR 25's first runs; inferred,
-# not measured apart), and the gate is about four times that, as
-# LM_GRAD_TOL is set
+# zero-mean random v) makes far larger than the output's spread. Measured
+# apart at whisper-small's worst call, its decoder's causal self-attention
+# (ROADMAP C14; centered_attention_check): 2.42e-5 on v, and with v
+# centered over the keys the kernel's out(v - c) + c is 2.2e-6 from the
+# plain out(v) (4.4e-7 from the plain out(v - c)), so the error follows
+# v's common component. That centered check is gated at FLASH_TOL; the
+# gate here is about four times the uncentered reading
 PAIRED_TOL = {"float32": 1e-4, "bfloat16": FLASH_TOL["bfloat16"]}
 # the reduced twins (float32, jamba at 4 layers so that both mamba kinds
 # run), card against CPU from one set of weights and inputs: prefill and
 # every decode step's logits, relative to max |logit| (LM_LOGIT_TOL)
 LM_FAMILY_TWINS = ("dbrx-132b", "llama4-maverick-400b-a17b",
-                   "jamba-v0.1-52b", "internvl2-76b", "whisper-small")
+                   "jamba-v0.1-52b", "internvl2-76b", "whisper-small",
+                   "xlstm-350m")
 LM_FAMILY_TWIN_GEN = 8
 # one Adam step of whisper-small at full size: train_4k's 4,096 decoder
 # tokens, its batch of 256 cut to 2 (the reference's encoder-decoder reads
 # no remat)
 WHISPER_TRAIN_ARGS = ["--arch", "whisper-small", "--shape", "train_4k",
                       "--batch", "2", "--lr", "1e-4", "--steps", "1"]
+# one Adam step of xlstm-350m at full width: train_4k's 4,096 tokens with
+# remat, its batch of 256 cut to 2 (the sLSTM a Python loop over the 4,096
+# steps, forward, recompute and backward)
+XLSTM_TRAIN_ARGS = ["--arch", "xlstm-350m", "--shape", "train_4k",
+                    "--batch", "2", "--lr", "1e-4", "--steps", "1"]
+# the dry run (dryrun phase): every arch x supported shape on both
+# production meshes under both policies, the 39 meta steps traced in
+# DRYRUN_JOBS spawned host processes
+DRYRUN_JOBS = 7
 # its gradient with the kernel against the plain attention's, per
 # parameter tensor max |error| / max |plain gradient|. The cross-attention's
 # wq and wk (and ln_x before it) get sums over 1,500 near-uniform weights
@@ -4391,6 +4445,7 @@ def phase_lm(ctx):
                              f"{decode_err} > {LM_LOGIT_TOL}")
     ctx["launches"]["flash_attention"] = launches
     ctx["lm"] = (model, prompts)
+    placed = lm_placed_prefill(ctx, model, prompts)
     return {"arch": cfg.name, "layers": cfg.num_layers,
             "d_model": cfg.d_model, "heads": cfg.num_heads,
             "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
@@ -4412,7 +4467,52 @@ def phase_lm(ctx):
             "warm_tokens_equal_cold": bool(torch.equal(tokens,
                                                        cold["tokens"])),
             "min_top2_gap": float(warm["gaps"].min()),
-            "first_tokens": tokens[:, :8].tolist()}
+            "first_tokens": tokens[:, :8].tolist(), "placed": placed}
+
+
+def lm_placed_prefill(ctx, model, prompts):
+    """One prefill of the lm phase's model placed on make_test_mesh(1, 1)
+    (cuda:0) by its parameters' specs and run under use_mesh, with
+    constrain live (it raises on a tensor off the mesh inside the block):
+    the logits bit for bit those of the same prefill without a mesh, the
+    kernel's launches counted under the path lm:mesh."""
+    import torch
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import act_sharding
+    cfg = model.cfg
+    prefill = steps.make_prefill_step(cfg, prompts.shape[1] + 1)
+    want, _ = prefill(model, prompts)
+    mesh = lmesh.make_test_mesh(1, 1)
+    specs = steps.model_param_specs(model, mesh)
+    sharding.place(model, mesh, specs)
+    torch.cuda.synchronize()
+    n0 = F.launches
+    t0 = time.perf_counter()
+    with act_sharding.use_mesh(mesh):
+        got, _ = prefill(model, prompts)
+        torch.cuda.synchronize()
+        placed_s = time.perf_counter() - t0
+        launches = F.launches - n0
+        try:
+            act_sharding.constrain(torch.zeros(4, 1), ("batch", None))
+            live = False
+        except ValueError:
+            live = True
+    ctx["launches_by_path"]["flash_attention"]["lm:mesh"] = launches
+    equal = bool(torch.equal(got, want))
+    if not (equal and live and launches == cfg.num_layers):
+        raise AssertionError(f"placed prefill: logits bitwise equal {equal}, "
+                             f"constrain live {live}, {launches} launches "
+                             f"for {cfg.num_layers} layers")
+    return {"mesh": dict(mesh.shape), "devices": [str(d) for d in
+                                                  mesh.devices],
+            "sharded_specs": sum(any(e is not None for e in sp)
+                                 for sp in specs.values()),
+            "params": len(specs), "logits_bitwise_equal": equal,
+            "constrain_live": live, "flash_attention_launches": launches,
+            "prefill_ms": 1e3 * placed_s}
 
 
 def _param_kind(name: str) -> str:
@@ -4847,9 +4947,11 @@ class _PairedAttention:
     with the averaging (a non-causal row over 1,500 frames cancels to an
     output far below |v|), which FLASH_CASES' random inputs do not show."""
 
-    def __init__(self):
+    def __init__(self, keep_worst: bool = False):
         self.errors = []
         self.worst = None
+        self.keep_worst = keep_worst
+        self.worst_inputs = None
 
     def __call__(self, q, k, v, causal=True, window=None, scale=None):
         from repro_torch.kernels import flash_attention as F
@@ -4866,6 +4968,9 @@ class _PairedAttention:
                               (q[:, :1].float() @ k[:, :1].float()
                                .transpose(-1, -2)).abs().max())
                           * q.shape[-1] ** -0.5}
+            if self.keep_worst:
+                self.worst_inputs = (q.clone(), k.clone(), v.clone(), causal,
+                                     window, scale)
         self.errors.append(err)
         return got
 
@@ -4976,13 +5081,13 @@ def lm_family(ctx, arch, layers, dtype, B, P, G):
                              f"finite of the expected shape")
     # the kernel against its plain version at every attention product of
     # a served run, on the model's own inputs
-    paired = _PairedAttention()
+    paired = _PairedAttention(keep_worst=arch == "whisper-small")
     with _routing(model, {}) as kernel_routes:
         serve.generate(model, prompts, G, attention=paired, frames=frames,
                        embeds=embeds)
-    paired_err = max(paired.errors)
+    paired_err = max(paired.errors) if paired.errors else None
     if len(paired.errors) != attn + per_step * G or \
-            not paired_err <= PAIRED_TOL[dtype]:
+            (paired.errors and not paired_err <= PAIRED_TOL[dtype]):
         raise AssertionError(f"{arch}: the kernel vs its plain version on "
                              f"the model's attention inputs: {paired_err} "
                              f"> {PAIRED_TOL[dtype]} over "
@@ -5010,8 +5115,11 @@ def lm_family(ctx, arch, layers, dtype, B, P, G):
     del plain
 
     # prefill + one decode step against the parallel forward over P + 1
-    # (drop-free MoE on both sides), gated as above
+    # (drop-free MoE on both sides), gated as above (xLSTM at
+    # XLSTM_LOGIT_TOL, its float32 floor)
     nxt = prompts[:, :1]
+    extra = {}
+    dec_tol = XLSTM_LOGIT_TOL if cfg.block_type == "xlstm" else tol
     with _drop_free(model), torch.no_grad():
         prefill = steps.make_prefill_step(cfg, P + 2 + cfg.vis_tokens)
         decode = steps.make_decode_step(cfg)
@@ -5030,12 +5138,34 @@ def lm_family(ctx, arch, layers, dtype, B, P, G):
             else:
                 lf, _, _ = model(torch.cat([prompts, nxt], 1),
                                  embeds=embeds, logits_slice=1)
+        if cfg.block_type == "xlstm":
+            # the same parallel forward with the embedding scaled by one
+            # float32 ulp: the model's own float32 floor
+            keep = model.embed.detach().clone()
+            model.embed.mul_(1 + 2.0 ** -23)
+            lp, _, _ = model(torch.cat([prompts, nxt], 1), logits_slice=1)
+            model.embed.copy_(keep)
+            del keep
+            extra["max_rel_err_parallel_embed_ulp_vs_parallel"] = float(
+                (lp[:, -1] - lf[:, -1]).abs().max()) / float(lf.abs().max())
+            del lp
     decode_flips = _route_flips(step_routes, parallel_routes, join_a=True)
     decode_err = float((ld[:, -1].float() - lf[:, -1].float()).abs().max()) \
         / float(lf.float().abs().max())
-    if not decode_flips and not decode_err <= tol:
+    del lf, ld
+    if not decode_flips and not decode_err <= dec_tol:
         raise AssertionError(f"{arch}: prefill + decode vs the parallel "
-                             f"forward: {decode_err} > {tol}")
+                             f"forward: {decode_err} > {dec_tol}")
+    if paired.worst_inputs is not None:
+        c14 = centered_attention_check(*paired.worst_inputs)
+        extra["c14_centered"] = c14
+        paired.worst_inputs = None
+        if not c14["centered_kernel_vs_plain"] <= FLASH_TOL["float32"]:
+            raise AssertionError(f"{arch}: the kernel on v centered over "
+                                 f"the keys vs the plain version: {c14}")
+    if cfg.block_type == "xlstm":
+        extra["mlstm_chunked_vs_sequential"] = mlstm_chunk_check(model,
+                                                                 prompts)
     counted = encdec.param_count(cfg) if cfg.encdec else lm.param_count(cfg)
     param_bytes = sum(p.numel() * p.element_size()
                       for p in model.parameters())
@@ -5065,11 +5195,96 @@ def lm_family(ctx, arch, layers, dtype, B, P, G):
         "moe_routes_differing_vs_plain": flips,
         "max_rel_err_decode_vs_parallel": decode_err,
         "moe_routes_differing_decode_vs_parallel": decode_flips,
+        "decode_tol": dec_tol,
         "greedy_steps_equal_to_plain": agree,
         "warm_tokens_equal_cold": bool(torch.equal(tokens, cold["tokens"])),
         "min_top2_gap": float(warm["gaps"].float().min()),
-        "first_tokens": tokens[:, :8].tolist()}
+        "first_tokens": tokens[:, :8].tolist(), **extra}
     return report, launches, (model, prompts, embeds)
+
+
+def centered_attention_check(q, k, v, causal, window, scale):
+    """C14 measured apart on one attention call's own inputs: the kernel
+    and its plain version on v and on v - c, c = v's mean over the keys
+    per (batch, kv head, column). Softmax rows sum to 1, so out(v - c) + c
+    = out(v); if the kernel's float32 error scales with v's common
+    component, the centered kernel output lands far closer to the plain
+    out(v). Errors relative to max |v|."""
+    import torch
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import ops
+    g = q.shape[1] // k.shape[1]
+    c = v.mean(dim=2, keepdim=True)
+    cq = c.repeat_interleave(g, dim=1)
+    vmax = float(v.abs().max())
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max()) / vmax
+    with torch.no_grad():
+        plain = F.flash_attention_plain(q, k, v, causal, window, scale)
+        kern = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+        vc = (v - c).contiguous()
+        kern_c = ops.flash_attention(q, k, vc, causal=causal, window=window,
+                                     scale=scale) + cq
+        plain_c = F.flash_attention_plain(q, k, vc, causal, window,
+                                          scale) + cq
+    return {"q": list(q.shape), "k": list(k.shape), "causal": causal,
+            "max_abs_v": vmax, "max_abs_v_centered": float(vc.abs().max()),
+            "kernel_vs_plain": err(kern, plain),
+            "centered_kernel_vs_plain": err(kern_c, plain),
+            "centered_kernel_vs_centered_plain": err(kern_c, plain_c),
+            "centered_plain_vs_plain": err(plain_c, plain),
+            "flash_tol": FLASH_TOL["float32"]}
+
+
+def mlstm_chunk_check(model, prompts):
+    """The chunked mLSTM (`_mlstm_chunk` over chunks of xlstm_chunk
+    tokens) against `mlstm_sequential` (one step a token) on the first
+    mLSTM block's own q, k, v and gates of the prompts, float32 on the
+    card: h and the final C, n, m, each max |error| / max |sequential|,
+    within XLSTM_CHUNK_TOL."""
+    import torch
+    from torch.nn import functional as Fn
+    from repro_torch.models import xlstm
+    cfg = model.cfg
+    blk = model.blocks[0]
+    cell = blk.cell
+    B, S = prompts.shape
+    L = cfg.xlstm_chunk
+    f32 = torch.float32
+    with torch.no_grad():
+        x = blk.ln(model.embed[prompts])
+        q, k, v = (torch.einsum("bsd,dhk->bhsk", x, w).to(f32)
+                   for w in (cell.wq, cell.wk, cell.wv))
+        lf = Fn.logsigmoid(torch.einsum("bsd,dh->bhs", x, cell.wf).to(f32))
+        li = torch.einsum("bsd,dh->bhs", x, cell.wi).to(f32)
+        state = xlstm.init_mlstm_state(cfg, B, x.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs, st = [], state
+        for c0 in range(0, S, L):
+            sl = slice(c0, c0 + L)
+            h, st = xlstm._mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                       lf[..., sl], li[..., sl], st)
+            hs.append(h)
+        h_chunk = torch.cat(hs, dim=2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        h_seq, st_seq = xlstm.mlstm_sequential(q, k, v, lf, li, state)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    errs = {"h": float((h_chunk - h_seq).abs().max())
+            / float(h_seq.abs().max())}
+    for n in ("C", "n", "m"):
+        errs[n] = float((st[n] - st_seq[n]).abs().max()) / \
+            float(st_seq[n].abs().max())
+    if not max(errs.values()) <= XLSTM_CHUNK_TOL:
+        raise AssertionError(f"chunked vs sequential mLSTM: {errs} > "
+                             f"{XLSTM_CHUNK_TOL}")
+    return {"tokens": S, "chunk": L, "chunks": S // L, "max_rel_err": errs,
+            "tol": XLSTM_CHUNK_TOL, "chunked_ms": 1e3 * (t1 - t0),
+            "sequential_ms": 1e3 * (t2 - t1)}
 
 
 def lm_family_twins(ctx):
@@ -5217,7 +5432,8 @@ def phase_lm_families(ctx):
     for arch, layers, dtype, B, P, G in LM_FAMILIES:
         report, launches, (model, prompts, embeds) = lm_family(
             ctx, arch, layers, dtype, B, P, G)
-        by_path[f"lm_families:{arch}"] = launches
+        if arch not in NO_ATTENTION:
+            by_path[f"lm_families:{arch}"] = launches
         if ctx.get("profile") and arch in ("dbrx-132b", "jamba-v0.1-52b"):
             prefill = steps.make_prefill_step(model.cfg, P + G + 1)
             report["profile_prefill"] = _profiled(
@@ -5229,7 +5445,81 @@ def phase_lm_families(ctx):
     out["twins"] = lm_family_twins(ctx)
     out["whisper_train"], n = whisper_train_step(ctx)
     by_path["lm_families:whisper_train"] = n
+    out["xlstm_train"] = xlstm_train_step(ctx)
     return out
+
+
+def xlstm_train_step(ctx):
+    """One Adam step of xlstm-350m at full width through the train
+    launcher (train_4k: 4,096 tokens with remat, batch 2): a finite loss,
+    no flash_attention launch; ms, tokens/s and peak memory."""
+    import torch
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.launch import train
+    dev = torch.device(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    F.reset_launches()
+    res = train.run(train.parse_args(
+        XLSTM_TRAIN_ARGS + ["--seed", str(ctx["seed"]), "--device", DEVICE]))
+    launches = F.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg, losses, step_s = res["cfg"], res["losses"], res["step_s"][0]
+    tokens = res["tokens_per_step"]
+    del res
+    torch.cuda.empty_cache()
+    if launches != 0 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"xlstm step: {launches} launches, losses "
+                             f"{losses}")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "remat": cfg.remat,
+            "tokens_per_step": tokens, "loss": losses[0],
+            "step_ms": 1e3 * step_s, "tokens_per_s": tokens / step_s,
+            "flash_launches": launches, "peak_memory_bytes": peak - held}
+
+
+def phase_dryrun(ctx):
+    """The port's pod dry run (launch/dryrun.py): every arch x supported
+    shape x {16 x 16, 2 x 16 x 16} x {default, dp}, 39 meta steps (each
+    traced once, in DRYRUN_JOBS spawned processes) and 156 spec records;
+    whisper-small's long_500k is skipped by the reference's gate. Host
+    only by design: the meshes are a 256- and a 512-chip pod that one
+    card cannot be, the steps run on meta tensors, and no process touches
+    the card. Every record must read ok or skipped; the records go to a
+    temporary directory, not into the repo."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import SHAPES
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        recs = list(dryrun.run_all(ARCH_IDS, list(SHAPES), (False, True),
+                                   tuple(dryrun.POLICIES), tmp,
+                                   jobs=DRYRUN_JOBS))
+        files = len(list(Path(tmp).iterdir()))
+    wall = time.perf_counter() - t0
+    ok = [r for r in recs if r["status"] == "ok"]
+    skipped = sorted({(r["arch"], r["shape"]) for r in recs
+                      if r["status"].startswith("skipped")})
+    traces = {(r["arch"], r["shape"]): r["trace_s"] for r in ok}
+    failed = [f"{r['arch']} {r['shape']} {r['mesh']} {r['policy']}: "
+              f"{r.get('error', r['status'])}" for r in recs
+              if r not in ok and not r["status"].startswith("skipped")]
+    if failed or len(ok) != 156 or len(traces) != 39 or \
+            skipped != [("whisper-small", "long_500k")]:
+        raise AssertionError(f"dry run: {len(ok)} records ok of "
+                             f"{len(recs)}, {len(traces)} meta steps, "
+                             f"skipped {skipped}, failed {failed[:4]}")
+    train_rows = {f"{r['arch']} {r['mesh']} {r['policy']}": {
+        "gib_per_device": r["memory"]["argument_size_in_bytes"] / 2**30,
+        "flops": r["cost"]["flops"]} for r in ok if r["shape"] == "train_4k"}
+    return {"seconds": wall, "jobs": DRYRUN_JOBS, "meta_steps": len(traces),
+            "records": len(recs), "records_ok": len(ok),
+            "records_written": files, "skipped": skipped,
+            "trace_s_sum": sum(traces.values()),
+            "trace_s_max": max(traces.values()),
+            "slowest_step": max(traces, key=traces.get),
+            "train_4k": train_rows}
 
 
 def main(argv=None) -> int:
@@ -5273,6 +5563,7 @@ def main(argv=None) -> int:
         phases.append(("profile", phase_profile))
     phases.append(("lm_train", phase_lm_train))
     phases.append(("lm_families", phase_lm_families))
+    phases.append(("dryrun", phase_dryrun))
     for name, fn in phases:
         try:
             out = fn(ctx)

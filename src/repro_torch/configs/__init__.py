@@ -2,8 +2,7 @@
 architecture (plus smoke variants via ArchConfig.reduced()).
 
 The configurations are data, copied from the reference's `repro.configs`;
-the port's models run all of them but xlstm-350m (models/lm.py says
-why it waits).
+the port's models run all of them.
 The paper's GP experiment configuration is `configs.paper_gp.CONFIG`
 (GPExperimentConfig), a copy of the reference's."""
 from __future__ import annotations

@@ -58,6 +58,9 @@ from . import _build
 
 #: kernel launches since import or the last `reset_launches()`
 launches = 0
+#: devices whose tensors take the plain version: the CPU, and meta (a
+#: shape-only path that computes nothing, for launch/dryrun.py)
+PLAIN_DEVICES = ("cpu", "meta")
 
 #: head dimensions the CUDA kernel is built for
 KERNEL_DIMS = (32, 64, 128)
@@ -295,10 +298,11 @@ def flash_attention(q, k, v, causal: bool = True, window=None, scale=None):
     """q (B, H, Sq, D), k and v (B, KH, Sk, D) -> (B, H, Sq, D) in q's
     dtype; `scale` defaults to 1 / sqrt(D).
 
-    CPU tensors run the plain version; tensors on any other device go to
-    the CUDA kernel, which takes contiguous float32 or bfloat16 inputs on
-    one CUDA device and raises on anything else."""
-    if q.device.type == "cpu":
+    CPU tensors run the plain version, and so do meta tensors (the dry
+    run's shape-only path, which computes nothing); tensors on any other
+    device go to the CUDA kernel, which takes contiguous float32 or
+    bfloat16 inputs on one CUDA device and raises on anything else."""
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal, window, scale)
     return _launch(q, k, v, causal, window, scale)
 
@@ -306,9 +310,9 @@ def flash_attention(q, k, v, causal: bool = True, window=None, scale=None):
 def flash_attention_lse(q, k, v, causal: bool = True, window=None,
                         scale=None):
     """(out, lse): `flash_attention` and each row's log-sum-exp (B, H, Sq)
-    float32 in natural log. The plain version on the CPU, the kernel (one
-    launch, its lse output on) on a CUDA device."""
-    if q.device.type == "cpu":
+    float32 in natural log. The plain version on the CPU (and on meta),
+    the kernel (one launch, its lse output on) on a CUDA device."""
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_plain_lse(q, k, v, causal, window, scale)
     return _launch(q, k, v, causal, window, scale, with_lse=True)
 

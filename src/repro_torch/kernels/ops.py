@@ -188,7 +188,8 @@ def flash_attention(q, k, v, causal: bool = True, window=None, scale=None):
 
     Signature of the reference's `ops.flash_attention` less its execution
     options (`use_pallas`, `interpret`, block sizes): the tensor's device
-    decides. A CPU tensor takes the plain version; a CUDA tensor goes to
+    decides. A CPU tensor takes the plain version (and a meta tensor, the
+    dry run's shape-only path); a CUDA tensor goes to
     the hand-written kernel, made contiguous here, which masks its own
     ragged edges (the reference's op picks divisor block sizes instead).
 
@@ -203,7 +204,7 @@ def flash_attention(q, k, v, causal: bool = True, window=None, scale=None):
         return _flash.FlashAttentionFunction.apply(
             q.contiguous(), k.contiguous(), v.contiguous(), causal, window,
             scale, _flash.BWD_CHUNK)
-    if q.device.type == "cpu":
+    if q.device.type in _flash.PLAIN_DEVICES:
         return _flash.flash_attention_plain(q, k, v, causal, window, scale)
     return _flash.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal, window, scale)

@@ -1,24 +1,82 @@
-"""The agent mesh of the sharded GP fleet.
+"""Meshes: the LM's (data, model) meshes and the agent mesh of the
+sharded GP fleet (counterpart of `repro.launch.mesh`).
 
-Counterpart of `repro.launch.mesh`'s `make_agent_mesh` (the LM meshes,
-`make_production_mesh` and `make_test_mesh`, come with the LM's sharding,
-ROADMAP A7b). The reference's mesh is a `jax.sharding.Mesh` driven by one
-controller; here it is a tuple of `torch.device`s on the one axis
-"agents", driven by one process: member i owns a contiguous block of
-agents, and the ring collectives (`core.consensus.dac`) move a member's
-tensor to the next member's device. Several members may share a device:
-`("cuda:0",) * 4` runs every hop of a four-member ring on one card, as
-the reference's forced host devices do on the CPU, and `("cpu",) * k` is
-the CPU tests' mesh. Functions only: importing this module touches no
-device.
+The reference's meshes are `jax.sharding.Mesh`es driven by one
+controller. Here a mesh is a named tuple of axis names, axis sizes and
+`torch.device`s, driven by one process:
+
+  LMMesh     ("data", "model"), or ("pod", "data", "model") for two
+             pods. `make_production_mesh` holds no devices: it is the pod
+             that the sharding specs plan for (launch/sharding.py,
+             launch/dryrun.py), what the reference's 512 forced host
+             devices stand for. `make_test_mesh` takes the visible cards,
+             or the devices it is given, row-major over its axes.
+  AgentMesh  the one axis "agents": member i owns a contiguous block of
+             agents, and the ring collectives (`core.consensus.dac`)
+             move a member's tensor to the next member's device.
+
+Several members may share a device: `("cuda:0",) * 4` runs every hop of
+a four-member ring on one card, as the reference's forced host devices
+do on the CPU, and `("cpu",) * k` is the CPU tests' mesh. Functions
+only: importing this module touches no device.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from ..device import resolve_device
+
+
+class LMMesh(NamedTuple):
+    """An n-D mesh over named axes; `devices` (row-major over the axes)
+    is empty for a planned mesh that no process holds."""
+    axis_names: tuple
+    axis_sizes: tuple
+    devices: tuple = ()
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LMMesh:
+    """Single pod: (16, 16) ("data", "model") = 256 chips.
+    Multi-pod:  (2, 16, 16) ("pod", "data", "model") = 512 chips.
+    A plan: it holds no devices."""
+    if multi_pod:
+        return LMMesh(("pod", "data", "model"), (2, 16, 16))
+    return LMMesh(("data", "model"), (16, 16))
+
+
+def make_test_mesh(data: int = 1, model: int = 1, devices=None) -> LMMesh:
+    """A (data, model) mesh over the first data * model of `devices`
+    (default: every visible card). Raises when no card is visible and no
+    `devices` were given, or when there are too few devices."""
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n == 0:
+            raise RuntimeError(
+                "no CUDA device is available for the test mesh: pass "
+                "devices=('cpu',) * k to build a mesh on the CPU")
+        devices = tuple(f"cuda:{i}" for i in range(n))
+    pool = tuple(resolve_device(d) for d in devices)
+    if len(pool) < data * model:
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} "
+                         f"devices, got {len(pool)}")
+    return LMMesh(("data", "model"), (data, model), pool[:data * model])
+
+
+def data_axes(mesh) -> tuple:
+    """The batch/FSDP axes present in this mesh ('pod' first if it
+    exists)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
 
 class AgentMesh(NamedTuple):

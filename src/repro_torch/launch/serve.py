@@ -7,8 +7,10 @@
       --layers 4 --dtype bfloat16 --batch 2 --prompt-len 2048 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
       --reduced --batch 4 --prompt-len 32 --gen 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
+      --batch 4 --prompt-len 2048 --gen 32
 
-Every family but xLSTM: dense and MoE transformers, jamba, the VLM
+Every family: dense and MoE transformers, jamba, xLSTM, the VLM
 (internvl2: `vis_tokens` patch embeddings before the prompt) and the
 whisper encoder-decoder (`enc_seq` frame embeddings encoded at the
 prefill, the encoder states carried to every decode step). Weights are
@@ -20,7 +22,8 @@ reference's stubs); nothing is downloaded. `--layers N` cuts the
 product of a prefill, of the whisper encoder and of every
 cross-attention runs through the hand-written flash_attention kernel on
 the card (its plain version on the CPU); cached decode steps attend over
-the cache in plain PyTorch, as the reference does. It runs on the card
+the cache in plain PyTorch, as the reference does. xLSTM runs no
+attention, so it launches no kernel. It runs on the card
 unless `--device cpu` is given, and prints what the reference prints,
 plus tok/s and the kernel's launches.
 """

@@ -8,8 +8,8 @@ repro.launch.train).
       --shape train_4k --batch 2 --steps 3 --lr 1e-4
 
 --reduced runs the smoke-scale variant (CPU-friendly); without it the
-configuration runs at its published widths. Every family but xLSTM:
-whisper's batches carry frame embeddings (B, enc_seq, d) and a VLM's its
+configuration runs at its published widths. Every family: whisper's
+batches carry frame embeddings (B, enc_seq, d) and a VLM's its
 patch embeddings (B, vis_tokens, d), both 0.1 x standard normal drawn
 from the run's generator as the reference's stubs, and a VLM's sequence
 is at least vis_tokens + 16 tokens. --shape NAME applies the
@@ -44,7 +44,6 @@ from ..device import resolve_device
 from ..kernels import flash_attention as F
 from ..models import build_model
 from ..models.convert import lm_tree_to_jax
-from ..models.lm import check_supported
 from .mesh import make_agent_mesh
 from .steps import (SHAPES, cfg_for_shape, make_federated_train_step,
                     make_train_step, pick_optimizer)
@@ -133,7 +132,6 @@ def run(args):
     if args.shape:
         cfg = cfg_for_shape(cfg, args.shape)
         seq = args.seq or SHAPES[args.shape]["seq"]
-    check_supported(cfg)
     if cfg.vis_tokens:
         seq = max(seq, cfg.vis_tokens + 16)
     gen = torch.Generator(dev).manual_seed(args.seed)

@@ -23,6 +23,11 @@ from .common import apply_rope, init_scale, rope_freqs
 class Attention(nn.Module):
     """wq, wk, wv, wo of one attention layer."""
 
+    AXES = {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed_out")}
+
     def __init__(self, cfg, dtype=torch.float32, device=None):
         super().__init__()
         self.cfg = cfg

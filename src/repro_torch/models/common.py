@@ -2,8 +2,9 @@
 (counterpart of repro.models.common).
 
 The reference's ParamDef DSL (shapes, logical axes, initializers) maps
-parameters to mesh axes; the port keeps parameters in `nn.Module`s and
-draws them in models/lm.py with the same initial scales (`init_scale`).
+parameters to mesh axes; the port keeps parameters in `nn.Module`s, draws
+them with the same initial scales (`init_scale`), and each module names
+its parameters' logical axes in a class dict `AXES` (`lm.param_axes`).
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ def rmsnorm(x, w, eps: float = 1e-5):
 
 class RMSNorm(nn.Module):
     """RMS norm with a learned scale, initialized to ones."""
+
+    AXES = {"weight": ("embed_norm",)}
 
     def __init__(self, d: int, eps: float = 1e-5, dtype=torch.float32,
                  device=None):

@@ -3,7 +3,7 @@ architecture families (dense / moe / ssm / hybrid / audio / vlm).
 
 A copy of the reference's `repro.models.config.ArchConfig`, field for
 field, so a configuration means the same in both packages. The port's
-models run every family but xLSTM (models/lm.py: dense, MoE, jamba, the
+models run every family (models/lm.py: dense, MoE, jamba, xLSTM, the
 VLM prefix; models/encdec.py: whisper); `use_pallas` is
 kept and ignored (a tensor's device decides whether attention runs the
 CUDA kernel or its plain version); `remat` and `remat_policy` checkpoint

@@ -82,6 +82,9 @@ class EncDec(nn.Module):
     head, ones for the norms); `init=False` leaves them uninitialized for
     models/convert.py."""
 
+    AXES = {"embed": ("vocab", "embed"), "pos_enc": ("enc_seq", "embed"),
+            "pos_dec": ("dec_seq", "embed"), "lm_head": ("embed", "vocab")}
+
     def __init__(self, cfg, device=None, dtype=torch.float32,
                  generator=None, init: bool = True):
         super().__init__()
@@ -170,12 +173,27 @@ class EncDec(nn.Module):
                            attention=attention)[0]
 
     def init_decode_cache(self, batch: int, max_len: int):
-        """Zeroed k/v caches (B, max_len, KH, hd) of the decoder's
-        self-attention layers in the parameters' dtype, index 0."""
-        return {"layers": [init_cache(self.cfg, batch, max_len,
-                                      self.embed.dtype, self.device)
-                           for _ in self.dec_blocks],
-                "index": 0}
+        """`init_decode_cache(cfg, ...)` in the parameters' dtype, on their
+        device."""
+        return init_decode_cache(self.cfg, batch, max_len, self.embed.dtype,
+                                 self.device)
+
+
+def init_decode_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
+                      device=None):
+    """Zeroed k/v caches (B, max_len, KH, hd) of the decoder's
+    self-attention layers in `dtype`, index 0."""
+    return {"layers": [init_cache(cfg, batch, max_len, dtype, device)
+                       for _ in range(cfg.num_layers)], "index": 0}
+
+
+def cache_axes(cfg) -> dict:
+    """Logical axes mirroring `init_decode_cache` (the reference's
+    `cache_axes` without its stacking "layers" axis)."""
+    attn = {"k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+            "v": ("batch", "kv_seq", "kv_heads", "head_dim"),
+            "index": ()}
+    return {"layers": [attn] * cfg.num_layers, "index": ()}
 
 
 def loss_fn(cfg, model, batch, aux_weight: float = 0.0, attention=None):

@@ -19,14 +19,22 @@ tree (models/convert.py maps one layout onto the other):
                 then the remaining mamba layers (`_jamba_split`). This is
                 the reference's composition order, not Jamba's published
                 interleave; the layer counts are the same.
+  xlstm         groups of `slstm_every` blocks: k - 1 mLSTM blocks, then
+                one sLSTM block (`blocks.mlstm` stacked (n_groups, k - 1),
+                `blocks.slstm` (n_groups,)).
 
 Each attention block is pre-norm: x + attn(rmsnorm(x)), then x +
 ffn(rmsnorm(x)) with the FFN an MLP or an MoE; a mamba block is x +
-mamba(rmsnorm(x)), then with an MoE x + moe(rmsnorm(x)). `embeds` (B, P,
-d), the VLM's patch embeddings, go before the token embeddings, and
-positions run over the whole stream; `loss_fn` pads their labels with -1.
-A decode cache holds k/v for every attention layer and {conv, h} for
-every mamba layer, and one index over prefix and prompt.
+mamba(rmsnorm(x)), then with an MoE x + moe(rmsnorm(x)); an mLSTM block
+is x + mlstm(rmsnorm(x)) with no FFN, an sLSTM block x + slstm(rmsnorm(x))
+then x + gelu_mlp(rmsnorm(x)). `embeds` (B, P, d), the VLM's patch
+embeddings, go before the token embeddings, and positions run over the
+whole stream; `loss_fn` pads their labels with -1. A decode cache holds
+k/v for every attention layer, {conv, h} for every mamba layer, {C, n, m}
+for every mLSTM and {h, c, n, m} for every sLSTM (no KV cache, so an
+xLSTM's state does not grow with `max_len`), and one index over prefix
+and prompt. Each group starts by pinning the residual stream to the
+batch axes (`act_sharding.constrain`, a no-op without a mesh).
 
 With `cfg.remat` a training forward (grad mode on, no cache) runs each
 block under `torch.utils.checkpoint` (non-reentrant), as the reference
@@ -36,10 +44,9 @@ recomputed in the backward, its attention kernel launched again.
 (the reference's `dots_with_no_batch_dims_saveable`) and recomputes the
 rest.
 
-Not yet ported: the xLSTM block family (ROADMAP A11c). The whisper
-encoder-decoder is models/encdec.py's `EncDec`. `act_sharding.constrain`
-is a no-op without a mesh in the reference and belongs to the multi-GPU
-work (ROADMAP A7b).
+The whisper encoder-decoder is models/encdec.py's `EncDec`. Each module
+names its parameters' logical axes in the reference's words (`AXES`,
+`param_axes`), which launch/sharding.py maps to mesh axes.
 """
 from __future__ import annotations
 
@@ -50,21 +57,12 @@ from torch import nn
 from torch.utils import checkpoint as _ckpt
 
 from ..device import resolve_device
+from .act_sharding import constrain
 from .attention import Attention, init_cache
 from .common import RMSNorm, cross_entropy, gelu_mlp, init_scale, swiglu
 from .mamba import Mamba, init_mamba_state
 from .moe import MoE
-
-NOT_PORTED = "not yet ported (ROADMAP A11c)"
-
-
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError for a family the port does not run yet."""
-    if cfg.block_type == "xlstm":
-        raise NotImplementedError(f"{cfg.name}: xlstm blocks are "
-                                  f"{NOT_PORTED}")
-    if cfg.block_type not in ("transformer", "jamba"):
-        raise ValueError(f"{cfg.name}: unknown block type {cfg.block_type}")
+from .xlstm import MLSTM, SLSTM, init_mlstm_state, init_slstm_state
 
 
 def _jamba_split(cfg):
@@ -78,12 +76,20 @@ def _jamba_split(cfg):
 
 def layer_plan(cfg) -> list:
     """One (kind, key, group, index) per layer in execution order: kind is
-    "attn" (attention + MLP), "attn_moe", "mamba" or "mamba_moe"; the
-    layer's leaves sit at blocks[key][...][group] of the reference's tree,
-    then [index] when the key stacks several layers a group (index None
-    when it holds one)."""
-    check_supported(cfg)
+    "attn" (attention + MLP), "attn_moe", "mamba", "mamba_moe", "mlstm" or
+    "slstm"; the layer's leaves sit at blocks[key][...][group] of the
+    reference's tree, then [index] when the key stacks several layers a
+    group (index None when it holds one). Raises ValueError for a block
+    type the reference does not know."""
     plan = []
+    if cfg.block_type == "xlstm":
+        k = cfg.slstm_every
+        for g in range(cfg.num_layers // k):
+            plan += [("mlstm", "mlstm", g, i) for i in range(k - 1)]
+            plan.append(("slstm", "slstm", g, None))
+        return plan
+    if cfg.block_type not in ("transformer", "jamba"):
+        raise ValueError(f"{cfg.name}: unknown block type {cfg.block_type}")
     if cfg.block_type == "transformer":
         if not cfg.num_experts:
             return [("attn", "dense", g, 0) for g in range(cfg.num_layers)]
@@ -113,6 +119,10 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 class MLP(nn.Module):
     """SwiGLU (wg, wu, wd) or GELU (w1, w2) feed-forward."""
+
+    AXES = {"wg": ("embed", "ffn"), "wu": ("embed", "ffn"),
+            "wd": ("ffn", "embed_out"), "w1": ("embed", "ffn"),
+            "w2": ("ffn", "embed_out")}
 
     def __init__(self, cfg, dtype=torch.float32, device=None):
         super().__init__()
@@ -202,8 +212,63 @@ class MambaBlock(nn.Module):
         return x, new_state, _zero_aux(x)
 
 
+class MLSTMBlock(nn.Module):
+    """One mLSTM block: ln, cell (no FFN)."""
+
+    def __init__(self, cfg, dtype=torch.float32, device=None,
+                 moe: bool = False):
+        super().__init__()
+        self.ln = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.cell = MLSTM(cfg, dtype, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.cell.reset_parameters(generator)
+
+    def forward(self, x, positions=None, state=None, attention=None):
+        """Returns (x, new_state, aux 0); positions and attention are not
+        used (the signature is Block's)."""
+        h, new_state = self.cell(self.ln(x), state)
+        return x + h, new_state, _zero_aux(x)
+
+
+class SLSTMBlock(nn.Module):
+    """One sLSTM block: ln, cell, then ln2 and the (GELU) mlp."""
+
+    def __init__(self, cfg, dtype=torch.float32, device=None,
+                 moe: bool = False):
+        super().__init__()
+        self.ln = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.cell = SLSTM(cfg, dtype, device)
+        self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.mlp = MLP(cfg, dtype, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.cell.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+
+    def forward(self, x, positions=None, state=None, attention=None):
+        """Returns (x, new_state, aux 0), as MLSTMBlock's."""
+        h, new_state = self.cell(self.ln(x), state)
+        x = x + h
+        return x + self.mlp(self.ln2(x)), new_state, _zero_aux(x)
+
+
 _BLOCKS = {"attn": (Block, False), "attn_moe": (Block, True),
-           "mamba": (MambaBlock, False), "mamba_moe": (MambaBlock, True)}
+           "mamba": (MambaBlock, False), "mamba_moe": (MambaBlock, True),
+           "mlstm": (MLSTMBlock, False), "slstm": (SLSTMBlock, False)}
+
+
+def param_axes(model) -> dict:
+    """{parameter name: its logical axes}, in the reference's words, from
+    each module's `AXES` (a norm's weight is ("embed_norm",))."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        axes = getattr(mod, "AXES", {})
+        for name, _ in mod.named_parameters(recurse=False):
+            out[f"{prefix}.{name}" if prefix else name] = axes[name]
+    return out
 
 
 class LM(nn.Module):
@@ -217,7 +282,9 @@ class LM(nn.Module):
     A_log, 1 / sqrt(fan_in) for the projections (fan_in the axis the
     reference's ParamDef names), ones for the norms and D, zeros for the
     mamba biases. `init=False` leaves them uninitialized, for a caller
-    that loads them (models/convert.py)."""
+    that loads them (models/convert.py) or a dry run on `meta`."""
+
+    AXES = {"embed": ("vocab", "embed"), "lm_head": ("embed", "vocab")}
 
     def __init__(self, cfg, device=None, dtype=torch.float32,
                  generator=None, init: bool = True):
@@ -285,7 +352,12 @@ class LM(nn.Module):
             if remat == "dots" else _ckpt.noop_context_fn)
         aux = _zero_aux(x)
         new_layers = []
-        for blk, layer_cache in zip(self.blocks, layers):
+        group = None
+        for blk, layer_cache, (_, _, g, _) in zip(self.blocks, layers,
+                                                  self.plan):
+            if g != group:             # pin the residual stream, a group
+                x = constrain(x, ("batch", None, None))
+                group = g
             if remat:
                 x, c, a = _ckpt.checkpoint(blk, x, positions, None,
                                            attention, use_reentrant=False,
@@ -304,15 +376,45 @@ class LM(nn.Module):
         return logits, aux, new_cache
 
     def init_decode_cache(self, batch: int, max_len: int):
-        """Zeroed decode state in the parameters' dtype, index 0: k/v
-        (B, max_len, KH, hd) for an attention layer, conv (B, dc - 1, di)
-        and h (B, di, ds) float32 for a mamba layer."""
-        dt, dev = self.embed.dtype, self.device
-        return {"layers": [
-            init_cache(self.cfg, batch, max_len, dt, dev)
-            if kind.startswith("attn") else
-            init_mamba_state(self.cfg, batch, dt, dev)
-            for kind, *_ in self.plan], "index": 0}
+        """`init_decode_cache(cfg, ...)` in the parameters' dtype, on their
+        device."""
+        return init_decode_cache(self.cfg, batch, max_len, self.embed.dtype,
+                                 self.device)
+
+
+def init_decode_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
+                      device=None):
+    """Zeroed decode state, index 0, one entry a layer of `layer_plan`:
+    k/v (B, max_len, KH, hd) in `dtype` for an attention layer, conv
+    (B, dc - 1, di) in `dtype` and h (B, di, ds) float32 for a mamba
+    layer, {C, n, m} float32 for an mLSTM and {h, c, n, m} for an sLSTM."""
+    init = {"attn": lambda: init_cache(cfg, batch, max_len, dtype, device),
+            "mamba": lambda: init_mamba_state(cfg, batch, dtype, device),
+            "mlstm": lambda: init_mlstm_state(cfg, batch, device),
+            "slstm": lambda: init_slstm_state(cfg, batch, device)}
+    return {"layers": [init[kind.split("_")[0]]()
+                       for kind, *_ in layer_plan(cfg)], "index": 0}
+
+
+#: logical axes of each state of a decode cache (launch/sharding.py)
+CACHE_AXES = {
+    "attn": {"k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+             "v": ("batch", "kv_seq", "kv_heads", "head_dim"),
+             "index": ()},
+    "mamba": {"conv": ("batch", "conv_k", "mamba_inner"),
+              "h": ("batch", "mamba_inner", "mamba_state")},
+    "mlstm": {"C": ("batch", "heads", "head_dim", "head_dim_r"),
+              "n": ("batch", "heads", "head_dim"),
+              "m": ("batch", "heads")},
+    "slstm": {k: ("batch", "heads", "head_dim") for k in "hcnm"}}
+
+
+def cache_axes(cfg) -> dict:
+    """Logical axes mirroring `init_decode_cache` (the reference's
+    `cache_axes` without its stacking "layers" axes): one dict a layer,
+    and () for every index, the cache's and each attention layer's."""
+    return {"layers": [CACHE_AXES[kind.split("_")[0]]
+                       for kind, *_ in layer_plan(cfg)], "index": ()}
 
 
 def loss_fn(cfg, model, batch, aux_weight: float = 0.01, attention=None):
@@ -323,7 +425,6 @@ def loss_fn(cfg, model, batch, aux_weight: float = 0.01, attention=None):
     where the parameters stand (its own cfg decides the remat, as the
     reference's `cfg` does); `attention` replaces ops.flash_attention in
     every layer, as in `LM.forward`."""
-    check_supported(cfg)
     embeds = batch.get("embeds")
     logits, aux, _ = model(batch["tokens"], attention=attention,
                            embeds=embeds)
@@ -347,13 +448,16 @@ def _sizes(cfg) -> dict:
     dtr = max(d // 16, 1)
     mamba = (d * 2 * di + dc * di + di + di * (dtr + 2 * ds) + dtr * di
              + di + di * ds + di + di * d)
+    mlstm = 4 * d * H * hd + 2 * d * H + H * hd * d + H * hd
+    slstm = 4 * d * H * hd + 3 * H * hd * hd + H * hd * d
     return {"attn": 2 * d + attn + mlp, "attn_moe": 2 * d + attn + moe,
-            "mamba": d + mamba, "mamba_moe": 2 * d + mamba + moe}
+            "mamba": d + mamba, "mamba_moe": 2 * d + mamba + moe,
+            "mlstm": d + mlstm, "slstm": 2 * d + slstm + mlp}
 
 
 def param_count(cfg) -> int:
-    """Parameters of the decoder-only LM of `cfg` (every family but
-    xLSTM and the encoder-decoder)."""
+    """Parameters of the decoder-only LM of `cfg` (every family but the
+    encoder-decoder)."""
     sizes = _sizes(cfg)
     head = 0 if cfg.tie_embeddings else cfg.d_model * cfg.vocab_size
     return (cfg.vocab_size * cfg.d_model + sum(

@@ -11,7 +11,9 @@ selective scan h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t, y_t = C_t . h_t;
 then (y + u D) silu(z) out_proj.
 
 The scan runs chunk by chunk (`cfg.mamba_chunk` tokens, or the whole
-sequence as one chunk when the chunk does not divide it), each chunk cast
+sequence as one chunk when the chunk does not divide it, and on meta
+tensors: the dry run's shape-only path, where one chunk has the same
+products and FLOPs and S / L times fewer dispatches), each chunk cast
 to float32 as the reference casts it, the state h (B, di, ds) float32
 carried from chunk to chunk. Within a chunk the reference's
 `jax.lax.associative_scan` has no PyTorch counterpart: here a log-step
@@ -34,6 +36,16 @@ from .common import init_scale
 class Mamba(nn.Module):
     """in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D,
     out_proj of one mamba layer, in the reference's shapes."""
+
+    AXES = {"in_proj": ("embed", "mamba_inner2"),
+            "conv_w": ("conv_k", "mamba_inner"),
+            "conv_b": ("mamba_inner",),
+            "x_proj": ("mamba_inner", "mamba_low"),
+            "dt_proj": ("mamba_low_r", "mamba_inner"),
+            "dt_bias": ("mamba_inner",),
+            "A_log": ("mamba_inner", "mamba_state"),
+            "D": ("mamba_inner",),
+            "out_proj": ("mamba_inner", "embed_out")}
 
     def __init__(self, cfg, dtype=torch.float32, device=None):
         super().__init__()
@@ -130,7 +142,7 @@ def mamba_layer(p, x, cfg, *, state=None):
         hT = h
     else:
         L = cfg.mamba_chunk
-        if S % L:
+        if S % L or x.device.type == "meta":
             L = S
         ys = []
         hT = h0

@@ -12,9 +12,11 @@ and a choice past its expert's capacity is dropped. The router's logits
 are cast to float32 whatever the model's dtype, as the reference casts
 them, so the softmax and the top-k pick the same experts in a float64 run
 as in a float32 one. The expert products are dense einsums over the
-one-hot dispatch and combine tensors (G, g, E, C), as in the reference;
-its `act_sharding.constrain` calls are no-ops without a mesh and belong
-to the multi-GPU work (ROADMAP A7b).
+one-hot dispatch and combine tensors (G, g, E, C), as in the reference,
+and the grouped tokens, the dispatch and combine tensors, the experts'
+inputs, hidden activations and the output are pinned where the
+reference pins them (`act_sharding.constrain`: experts on the model
+axis, groups on the batch axes; a no-op without a mesh).
 """
 from __future__ import annotations
 
@@ -22,11 +24,17 @@ import torch
 from torch import nn
 from torch.nn import functional as Fn
 
+from .act_sharding import constrain
 from .common import init_scale
 
 
 class MoE(nn.Module):
     """router (d, E), wg and wu (E, d, f), wd (E, f, d) of one MoE FFN."""
+
+    AXES = {"router": ("embed", "experts_logits"),
+            "wg": ("experts", "embed", "ffn"),
+            "wu": ("experts", "embed", "ffn"),
+            "wd": ("experts", "ffn", "embed_out")}
 
     def __init__(self, cfg, dtype=torch.float32, device=None):
         super().__init__()
@@ -110,13 +118,18 @@ def moe_ffn(p, x, cfg):
     router, wg, wu, wd (an `MoE`)."""
     B, S, d = x.shape
     g, cap = capacity(cfg, B, S)
-    xt = x.reshape(B * S // g, g, d)
+    xt = constrain(x.reshape(B * S // g, g, d), ("batch", None, None))
     disp, comb, aux = route(p, xt, cfg, cap)
+    disp = constrain(disp, ("batch", None, "experts", None))
+    comb = constrain(comb, ("batch", None, "experts", None))
     expert_in = torch.einsum("GgEC,Ggd->GECd", disp, xt)
+    expert_in = constrain(expert_in, ("batch", "experts", None, None))
     h = Fn.silu(torch.einsum("GECd,Edf->GECf", expert_in, p.wg)) \
         * torch.einsum("GECd,Edf->GECf", expert_in, p.wu)
     del expert_in
+    h = constrain(h, ("batch", "experts", None, "ffn"))
     expert_out = torch.einsum("GECf,Efd->GECd", h, p.wd)
     del h
     out = torch.einsum("GgEC,GECd->Ggd", comb, expert_out)
+    out = constrain(out, ("batch", None, None))
     return out.reshape(B, S, d), aux

@@ -4,8 +4,9 @@ versions, their dispatch, the serving path with and without rbf_matvec,
 degraded (fault-plan) serving and the serving scheduler on the card,
 training through nll_grad, the streaming fleet through cholupdate, the
 sparse fleet's fit through rbf_gram, LM serving through
-flash_attention, and LM training through its log-sum-exp output and the
-ported backward (FlashAttentionFunction).
+flash_attention, LM training through its log-sum-exp output and the
+ported backward (FlashAttentionFunction), the xLSTM's chunked mLSTM
+against its sequential form, and a prefill placed on a (1, 1) mesh.
 
 Every test here is marked `gpu` and skips (in its fixture) without a card.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -925,7 +926,7 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b",
                                   "jamba-v0.1-52b", "internvl2-76b",
-                                  "whisper-small"])
+                                  "whisper-small", "xlstm-350m"])
 def test_lm_families_serve_on_the_card_as_on_the_cpu(cuda, arch):
     """The reduced MoE, jamba, VLM and whisper models (jamba at 4 layers:
     both mamba kinds) served on the card and on the CPU from the same
@@ -977,3 +978,58 @@ def test_lm_families_serve_on_the_card_as_on_the_cpu(cuda, arch):
     for got, want in zip(outs["card"], outs["cpu"]):
         assert float((got - want).abs().max()) <= \
             1e-4 * float(want.abs().max())
+
+
+def test_mlstm_chunked_matches_sequential_on_the_card(cuda):
+    """The chunked mLSTM (4 chunks of 64) against mlstm_sequential over
+    256 steps from a non-empty state, at xlstm-350m's head width, float32
+    on the card: h and the final state within 1e-4 of their max."""
+    from repro_torch.models import xlstm
+    g = torch.Generator(cuda).manual_seed(0)
+    B, H, S, hd, L = 2, 4, 256, 256, 64
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    q, k, v = draw(B, H, S, hd), draw(B, H, S, hd), draw(B, H, S, hd)
+    lf = torch.nn.functional.logsigmoid(draw(B, H, S) + 3)
+    li = draw(B, H, S)
+    state = {"C": draw(B, H, hd, hd), "n": draw(B, H, hd),
+             "m": draw(B, H)}
+    hs, st = [], state
+    for c0 in range(0, S, L):
+        sl = slice(c0, c0 + L)
+        h, st = xlstm._mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                   lf[..., sl], li[..., sl], st)
+        hs.append(h)
+    h_seq, st_seq = xlstm.mlstm_sequential(q, k, v, lf, li, state)
+    assert float((torch.cat(hs, 2) - h_seq).abs().max()) <= \
+        1e-4 * float(h_seq.abs().max())
+    for n in ("C", "n", "m"):
+        assert float((st[n] - st_seq[n]).abs().max()) <= \
+            1e-4 * float(st_seq[n].abs().max()), n
+
+
+def test_placed_prefill_under_a_mesh_on_the_card(cuda):
+    """Reduced internlm2 placed on make_test_mesh(1, 1) by its parameters'
+    specs: a prefill under use_mesh (constrain live: a CPU tensor raises)
+    bit for bit the unplaced prefill, one kernel launch a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh, sharding, steps
+    from repro_torch.models import LM, act_sharding
+    cfg = get_config("internlm2-1.8b").reduced()
+    g = torch.Generator(cuda).manual_seed(0)
+    model = LM(cfg, generator=g)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 100), generator=g,
+                            device=cuda)
+    prefill = steps.make_prefill_step(cfg, 101)
+    want, _ = prefill(model, prompts)
+    m = mesh.make_test_mesh(1, 1)
+    assert m.devices == (torch.device("cuda:0"),)
+    sharding.place(model, m, steps.model_param_specs(model, m))
+    before = F.launches
+    with act_sharding.use_mesh(m):
+        got, _ = prefill(model, prompts)
+        with pytest.raises(ValueError, match="not on the mesh"):
+            act_sharding.constrain(torch.zeros(2, 1), ("batch", None))
+    assert F.launches - before == cfg.num_layers
+    assert torch.equal(got, want)

@@ -386,6 +386,14 @@ def _meta_flash_inputs(B=1, H=4, KH=2, Sq=8, Sk=8, D=64,
             torch.empty(B, KH, Sk, D, **meta))
 
 
+def _meta_stands_for_cuda(monkeypatch, F):
+    """Only the CPU and meta (the dry run's shape-only path) take the
+    plain version; with meta taken out of that set, meta tensors stand in
+    for CUDA tensors here, where no card is."""
+    assert F.PLAIN_DEVICES == ("cpu", "meta")
+    monkeypatch.setattr(F, "PLAIN_DEVICES", ("cpu",))
+
+
 def test_flash_attention_plain_never_takes_a_tensor_off_the_cpu(monkeypatch):
     """Meta tensors stand in for CUDA tensors: the op, the kernel module
     and an attention layer send them to the kernel's launch path (its
@@ -396,6 +404,7 @@ def test_flash_attention_plain_never_takes_a_tensor_off_the_cpu(monkeypatch):
 
     def plain(*args, **kw):
         raise AssertionError("plain version reached from a non-CPU tensor")
+    _meta_stands_for_cuda(monkeypatch, F)
     monkeypatch.setattr(F, "flash_attention_plain", plain)
     q, k, v = _meta_flash_inputs()
     before = F.launches
@@ -420,6 +429,7 @@ def test_flash_attention_raises_when_the_loader_fails(monkeypatch):
 
     def plain(*args, **kw):
         raise AssertionError("plain version reached from a non-CPU tensor")
+    _meta_stands_for_cuda(monkeypatch, F)
     monkeypatch.setattr(_build, "load_library", fail)
     monkeypatch.setattr(F, "flash_attention_plain", plain)
     monkeypatch.setattr(F, "_check", lambda *args: None)
@@ -462,12 +472,14 @@ def test_flash_attention_kernel_input_checks_raise(bad, match):
         F._check(q, k, v, window)
 
 
-def test_flash_attention_kernel_refuses_inputs_that_require_grad():
+def test_flash_attention_kernel_refuses_inputs_that_require_grad(
+        monkeypatch):
     """With grad mode on, the launch path refuses an input that requires
     grad (the kernel's output would carry no gradient path) before any
     other check; the op sends such inputs through FlashAttentionFunction,
     whose forward reaches the launch path with grad mode off."""
     from repro_torch.kernels import flash_attention as F
+    _meta_stands_for_cuda(monkeypatch, F)
     q, k, v = _meta_flash_inputs()
     q.requires_grad_()
     before = F.launches
@@ -506,36 +518,24 @@ def test_lm_serving_defaults_to_the_card(no_card):
                                   "llama4-maverick-400b-a17b",
                                   "internvl2-76b"])
 def test_lm_families_run_or_name_their_roadmap_item(arch, capsys):
-    """xLSTM still names its ROADMAP item from the model, both steps and
-    both launchers; MoE, jamba, the VLM prefix and the encoder-decoder
-    serve a few tokens and take a training step on the CPU."""
+    """Every family serves a few tokens and takes a training step on the
+    CPU through both launchers (MoE, jamba, xLSTM, the VLM prefix and the
+    encoder-decoder); none names a ROADMAP item any more. xLSTM runs no
+    attention, so its launchers report no attention layer."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve, steps, train
     from repro_torch.models import LM, build_model
+    from repro_torch.launch import serve, train
     cfg = get_config(arch).reduced()
-    if arch != "xlstm-350m":
-        build_model(cfg, device="cpu")
-        serve.main(["--arch", arch, "--reduced", "--device", "cpu",
-                    "--batch", "2", "--prompt-len", "8", "--gen", "2"])
-        train.main(["--arch", arch, "--reduced", "--device", "cpu",
-                    "--steps", "1", "--batch", "2", "--seq", "16"])
-        text = capsys.readouterr().out
-        assert "decoded 2 tokens/seq" in text and "step    0 loss" in text
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
-        LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
-        steps.make_prefill_step(cfg, 8)
-    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
-        steps.make_decode_step(cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
-        serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
-        train.main(["--arch", arch, "--reduced", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
-        steps.make_train_step(cfg, None)
-    with pytest.raises(NotImplementedError, match="not yet ported.*A11c"):
-        steps.make_federated_train_step(cfg, n_agents=2)
-    for dense in ("internlm2-1.8b", "chatglm3-6b", "granite-3-8b",
-                  "phi3-medium-14b"):
-        LM(get_config(dense).reduced(), device="cpu")
+    build_model(cfg, device="cpu")
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                "--batch", "2", "--prompt-len", "8", "--gen", "2"])
+    train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                "--steps", "1", "--batch", "2", "--seq", "16"])
+    text = capsys.readouterr().out
+    assert "decoded 2 tokens/seq" in text and "step    0 loss" in text
+    assert "not yet ported" not in text
+    if arch == "xlstm-350m":
+        assert "0 in the prefill (0 attention layers)" in text
+        for dense in ("internlm2-1.8b", "chatglm3-6b", "granite-3-8b",
+                      "phi3-medium-14b"):
+            LM(get_config(dense).reduced(), device="cpu")
