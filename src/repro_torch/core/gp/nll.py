@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from ...obs.tracing import span
 from .kernel import cov_grads, cov_matrix
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -79,12 +80,14 @@ def inner_from_cov(C: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     other words. On the card it is the faster of the three library routes
     (chip_smoke.py's train phase times it against torch.cholesky_solve
     and torch.cholesky_inverse; PERF.md has the numbers)."""
-    L = cholesky(C)
-    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
-    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
-    Cinv = Linv.mT @ Linv
-    alpha = (Cinv @ y[..., None])[..., 0]
-    return Cinv - alpha[..., :, None] * alpha[..., None, :]
+    with span("train.factor"):
+        L = cholesky(C)
+    with span("train.inverse"):
+        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+        Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+        Cinv = Linv.mT @ Linv
+        alpha = (Cinv @ y[..., None])[..., 0]
+        return Cinv - alpha[..., :, None] * alpha[..., None, :]
 
 
 def nll(log_theta: torch.Tensor, X: torch.Tensor, y: torch.Tensor,

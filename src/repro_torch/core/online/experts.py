@@ -44,6 +44,7 @@ import torch
 
 from ...device import resolve_device
 from ...kernels.ops import cholupdate_fleet
+from ...obs.tracing import span
 from ..gp.kernel import se_kernel, unpack
 from ..gp.nll import cho_solve, cholesky
 from ..prediction.engine import FittedExperts
@@ -218,17 +219,28 @@ def _append_one(log_theta, jitter, Xw, yw, L, slot, x, y):
     return Xw, yw, L
 
 
+def _evict(log_theta, jitter, Xw, yw, L, active):
+    with span("online.evict"):
+        return _evict_oldest_shift(log_theta, jitter, Xw, yw, L, active)
+
+
+def _alpha(L, yw):
+    with span("online.alpha"):
+        return cho_solve(L, yw)
+
+
 def _observe_core(log_theta, jitter, Xw, yw, L, count, xs, ys):
     full = count >= Xw.shape[1]
-    Xw, yw, L = _evict_oldest_shift(log_theta, jitter, Xw, yw, L, full)
+    Xw, yw, L = _evict(log_theta, jitter, Xw, yw, L, full)
     count = torch.where(full, count - 1, count)
-    Xw, yw, L = _append_one(log_theta, jitter, Xw, yw, L, count, xs, ys)
-    return Xw, yw, L, cho_solve(L, yw), count + 1
+    with span("online.append"):
+        Xw, yw, L = _append_one(log_theta, jitter, Xw, yw, L, count, xs, ys)
+    return Xw, yw, L, _alpha(L, yw), count + 1
 
 
 def _evict_core(log_theta, jitter, Xw, yw, L, count):
-    Xw, yw, L = _evict_oldest_shift(log_theta, jitter, Xw, yw, L, count > 0)
-    return Xw, yw, L, cho_solve(L, yw), torch.clamp(count - 1, min=0)
+    Xw, yw, L = _evict(log_theta, jitter, Xw, yw, L, count > 0)
+    return Xw, yw, L, _alpha(L, yw), torch.clamp(count - 1, min=0)
 
 
 def _agent_parts(state: OnlineExperts, agent: int):

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ...obs.tracing import span
 from ..consensus.dac import dac
 from ..consensus.dale import dale
 from ..consensus.jor import jor
@@ -52,8 +53,9 @@ def _dac_sums(w0, A, iters: int):
     """DAC -> per-agent average estimates; returns (M * avg) = network sums.
 
     w0 (M, K): K parallel consensuses. Output (K,) sums plus residuals."""
-    w, res = dac(w0, A, iters)
-    return w0.shape[0] * w.mean(0), res
+    with span("consensus.dac"):
+        w, res = dac(w0, A, iters)
+        return w0.shape[0] * w.mean(0), res
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,7 @@ import torch
 
 from ...device import resolve_device
 from ...obs import default_registry
+from ...obs.tracing import span
 from ..consensus.degraded import (ConsensusDiverged, masked_perrons,
                                   perron_sums)
 from ..consensus.graph import connected_components
@@ -149,8 +150,10 @@ def map_query_tiles(tile_fn, Xs, chunk: int):
     # edge-replicate the tail: padded slots duplicate the LAST REAL query,
     # so the max-reduced residuals describe the served workload
     padded = torch.cat([Xs, Xs[-1:].expand(pad, -1)]) if pad else Xs
-    outs = [tile_fn(padded[t * chunk:(t + 1) * chunk])
-            for t in range(n_tiles)]
+    outs = []
+    for t in range(n_tiles):
+        with span("engine.tile"):
+            outs.append(tile_fn(padded[t * chunk:(t + 1) * chunk]))
     perq = {k: torch.cat([o[0][k] for o in outs])[:Nt] for k in outs[0][0]}
     reduced = {k: torch.stack([o[1][k] for o in outs]).amax(0)
                for k in outs[0][1]}
@@ -254,25 +257,30 @@ class PredictionEngine:
         """Local expert moments (M, Nt) from dense or sparse factors: the
         isinstance dispatch that lets every PoE/BCM/CBNN aggregation serve
         both fleets."""
-        if isinstance(f, SparseExperts):
-            return sparse_moments_cached(f.log_theta, f.Z, f.Lmm, f.LS, f.c,
-                                         Xq, stream_mean=self.stream_mean)
-        return local_moments_cached(f.log_theta, f.Xp, f.L, f.alpha, Xq,
-                                    stream_mean=self.stream_mean)
+        with span("engine.moments"):
+            if isinstance(f, SparseExperts):
+                return sparse_moments_cached(
+                    f.log_theta, f.Z, f.Lmm, f.LS, f.c, Xq,
+                    stream_mean=self.stream_mean)
+            return local_moments_cached(f.log_theta, f.Xp, f.L, f.alpha, Xq,
+                                        stream_mean=self.stream_mean)
 
     def _mask(self, f, Xq):
         """CBNN participation mask (eq. 39) from dense or sparse factors:
         both score forms equal sigma_f^2 - var_i, so eta_nn thresholds are
         comparable across expert representations."""
-        if isinstance(f, SparseExperts):
-            return _mask_from_scores(
-                sparse_scores(f.log_theta, f.Z, f.Lmm, f.LS, Xq),
-                self.eta_nn)
-        return cbnn_mask_cached(f.log_theta, f.Xp, f.L, Xq, self.eta_nn)[0]
+        with span("engine.moments"):
+            if isinstance(f, SparseExperts):
+                return _mask_from_scores(
+                    sparse_scores(f.log_theta, f.Z, f.Lmm, f.LS, Xq),
+                    self.eta_nn)
+            return cbnn_mask_cached(f.log_theta, f.Xp, f.L, Xq,
+                                    self.eta_nn)[0]
 
     def _terms(self, f: FittedExperts, Xq):
-        return npae_terms_cached(f.log_theta, f.Xp, f.L, f.alpha, Xq,
-                                 Kcross=f.Kcross)
+        with span("engine.moments"):
+            return npae_terms_cached(f.log_theta, f.Xp, f.L, f.alpha, Xq,
+                                     Kcross=f.Kcross)
 
     def _tile(self, method: str, Xq, chaos=None):
         f, fa, fc = self.fitted, self.fitted_aug, self.fitted_comm
@@ -299,8 +307,10 @@ class PredictionEngine:
 
         if chaos is not None:
             def dac_fn(w0, A_, iters):
-                return perron_sums(w0, chaos["perrons"], chaos["alive_seq"],
-                                   chaos["readout"], chaos["n_relay"])
+                with span("consensus.dac"):
+                    return perron_sums(w0, chaos["perrons"],
+                                       chaos["alive_seq"], chaos["readout"],
+                                       chaos["n_relay"])
 
         if method == "nn_npae":
             # the CBNN scores (eq. 39) are the NPAE terms' k_A
@@ -477,6 +487,10 @@ class PredictionEngine:
         consensus residual above `degraded_tol`). A consensus-free plan
         (stragglers, injected failures only) takes the exact path: bit
         for bit the result without a plan."""
+        with span("engine.predict"):
+            return self._predict(method, Xs, fault_plan)
+
+    def _predict(self, method: str, Xs, fault_plan):
         if method not in self.METHODS:
             raise ValueError(f"unknown prediction method {method!r}; "
                              f"one of {self.METHODS}")

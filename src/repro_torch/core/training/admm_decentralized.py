@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ...obs.tracing import span
 from ..consensus.dac import _hop, ring_allmax, ring_allsum
 from .cache import local_nll, make_local_grad
 
@@ -151,12 +152,13 @@ def train_dec_apx_gp(log_theta0, Xp, yp, A, rho: float = 500.0,
     Af, deg = _graph_terms(A, thetas.dtype, thetas.device)
     ys = []
     for _ in range(iters):
-        nbr_sum = Af @ thetas
-        grads = lgrad(thetas, aux)
-        thetas_next, p = dec_apx_update(thetas, p, grads, nbr_sum, deg,
-                                        rho, kappa)
-        ys.append(_dec_record(thetas_next, thetas, Af, rho, aux, diag))
-        thetas = thetas_next
+        with span("train.iter"):
+            nbr_sum = Af @ thetas
+            grads = lgrad(thetas, aux)
+            thetas_next, p = dec_apx_update(thetas, p, grads, nbr_sum, deg,
+                                            rho, kappa)
+            ys.append(_dec_record(thetas_next, thetas, Af, rho, aux, diag))
+            thetas = thetas_next
     return _dec_result(thetas, ys, diag)
 
 

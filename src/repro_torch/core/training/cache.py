@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ...kernels.ops import nll_grad_fused, nll_grad_fused_agents
+from ...obs.tracing import span
 from ..gp.kernel import diff2_stack, unpack
 from ..gp.nll import (effective_jitter, inner_from_cov, nll, nll_from_cov,
                       value_and_grad)
@@ -68,7 +69,8 @@ def nll_grad_cached(log_theta, d2u, y, jitter: float = 1e-8):
     """dNLL/dlog_theta (..., D+2) via the cached-geometry fused path: one
     Cholesky and its inverse per agent, then the single fused contraction
     for the whole fleet (one kernel launch on the card)."""
-    C, K = cov_from_cache(log_theta, d2u, jitter)
+    with span("train.factor"):
+        C, K = cov_from_cache(log_theta, d2u, jitter)
     inner = inner_from_cov(C, y)
     fused = nll_grad_fused if d2u.dim() == 3 else nll_grad_fused_agents
     return fused(log_theta, d2u, inner, K=K)

@@ -88,6 +88,7 @@ from ..device import resolve_device
 from ..launch.mesh import mesh_for
 from ..launch.scheduler import ServingScheduler
 from ..obs import default_registry
+from ..obs.tracing import span
 from .config import FleetConfig
 from .registry import get_method, get_trainer, validate_config
 
@@ -501,8 +502,11 @@ class GPFleet:
         in place. Returns self."""
         state = self._require_online("observe")
         dt = state.Xw.dtype
-        self._swap(observe_fleet(state, _tensor(xs, dt, self.device),
-                                 _tensor(ys, dt, self.device)))
+        with span("online.observe"):
+            state = observe_fleet(state, _tensor(xs, dt, self.device),
+                                  _tensor(ys, dt, self.device))
+            with span("engine.swap"):
+                self._swap(state)
         return self
 
     def drift(self, *, grad_fn=None, iters: int | None = None) -> dict:

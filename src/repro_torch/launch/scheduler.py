@@ -87,6 +87,7 @@ import numpy as np
 import torch
 
 from ..obs import Histogram, MetricsRegistry, Span, SpanLog, default_registry
+from ..obs.tracing import span
 
 __all__ = [
     "ServingScheduler", "Tenant", "TenantStats",
@@ -792,32 +793,38 @@ class ServingScheduler:
         """Pack and serve ONE slot for the next tenant in round-robin
         order. Returns True if a slot was dispatched. `force` dispatches
         partial slots immediately (drain / manual stepping)."""
-        now = time.perf_counter()
-        dropped: list[_Request] = []
-        with self._lock:
-            t = self._next_tenant_locked(now, force)
-            plan = None if t is None else self._pack_locked(t, now, dropped)
-            if plan is not None:
-                # mark in-flight UNDER the pack lock so the watchdog sees
-                # the dispatch the moment it can exist
-                t.inflight = True
-                t.inflight_since = time.perf_counter()
-                t.inflight_riders = list(plan[0])
-        # futures resolve OUTSIDE the lock: done-callbacks may re-enter
-        # (submit a follow-up request) without deadlocking
-        for req in dropped:
-            t.stats.count("dropped")
-            if req.span is not None:
-                req.span.advance("queue")
-                self._emit(req.span.event("deadline_dropped", rows=req.n))
-            if not req.fut.cancelled():
-                req.fut.set_exception(DeadlineExceeded(
-                    f"request missed its deadline by "
-                    f"{(now - req.deadline) * 1e3:.1f} ms before scheduling"))
-        if plan is None:
-            return False
-        self._execute(t, *plan, t_pack0=now)
-        return True
+        with span("frontdoor.slot") as sp:
+            now = time.perf_counter()
+            dropped: list[_Request] = []
+            with span("frontdoor.pack"), self._lock:
+                t = self._next_tenant_locked(now, force)
+                plan = None if t is None \
+                    else self._pack_locked(t, now, dropped)
+                if plan is not None:
+                    # mark in-flight UNDER the pack lock so the watchdog
+                    # sees the dispatch the moment it can exist
+                    t.inflight = True
+                    t.inflight_since = time.perf_counter()
+                    t.inflight_riders = list(plan[0])
+            # futures resolve OUTSIDE the lock: done-callbacks may re-enter
+            # (submit a follow-up request) without deadlocking
+            for req in dropped:
+                t.stats.count("dropped")
+                if req.span is not None:
+                    req.span.advance("queue")
+                    self._emit(req.span.event("deadline_dropped",
+                                              rows=req.n))
+                if not req.fut.cancelled():
+                    req.fut.set_exception(DeadlineExceeded(
+                        f"request missed its deadline by "
+                        f"{(now - req.deadline) * 1e3:.1f} ms before "
+                        f"scheduling"))
+            if plan is None:
+                return False
+            if sp:
+                sp.set(seqs=tuple(req.seq for req, _, _ in plan[0]))
+            self._execute(t, *plan, t_pack0=now)
+            return True
 
     def _predict_slot(self, t: Tenant, batch, rows: int, retries: int):
         """Run one slot batch through predict_fn with retry-on-failure
@@ -831,9 +838,12 @@ class ServingScheduler:
                 out = t.predict_fn(batch)
                 mean, var = out[0], out[1]
                 t_disp = time.perf_counter()   # async dispatch returned
-                _wait(mean)
+                with span("frontdoor.sync"):
+                    _wait(mean)
                 t_dev = time.perf_counter()
-                return _host(mean)[:rows], _host(var)[:rows], t_disp, t_dev
+                with span("frontdoor.copy"):
+                    return (_host(mean)[:rows], _host(var)[:rows], t_disp,
+                            t_dev)
             except Exception:
                 if attempt >= retries:
                     raise
@@ -906,13 +916,15 @@ class ServingScheduler:
         if t_pack0 is None:
             t_pack0 = time.perf_counter()
         try:
-            parts = [req.Xq[a:a + k] for req, a, k in riders]
-            rows = sum(k for _, _, k in riders)
-            batch = np.concatenate(parts, axis=0)
-            if rows < slot:
-                # edge-replicate: pad rows are a served workload, never X=0
-                batch = np.concatenate(
-                    [batch, np.repeat(batch[-1:], slot - rows, axis=0)])
+            with span("frontdoor.pack"):
+                parts = [req.Xq[a:a + k] for req, a, k in riders]
+                rows = sum(k for _, _, k in riders)
+                batch = np.concatenate(parts, axis=0)
+                if rows < slot:
+                    # edge-replicate: pad rows are a served workload,
+                    # never X=0
+                    batch = np.concatenate(
+                        [batch, np.repeat(batch[-1:], slot - rows, axis=0)])
             t0 = time.perf_counter()
             for req, _, _ in riders:
                 if req.span is not None:
@@ -933,7 +945,8 @@ class ServingScheduler:
                 if req.span is not None:
                     req.span.advance("dispatch", t_disp)
                     req.span.advance("device", t_dev)
-            self._deliver(t, riders, mean, var, slot, t_dev - t0)
+            with span("frontdoor.deliver"):
+                self._deliver(t, riders, mean, var, slot, t_dev - t0)
         finally:
             with self._lock:
                 t.inflight = False
@@ -969,7 +982,13 @@ class ServingScheduler:
                         timeout = remaining if timeout is None \
                             else min(timeout, remaining)
                 if not ready:
-                    self._work.wait(timeout=timeout)
+                    # pending rows at entry: 0 is no work, more is the
+                    # batching hold
+                    with span("frontdoor.wait") as sp:
+                        if sp:
+                            sp.set(pending=sum(t.pending_rows for t in
+                                               self._tenants.values()))
+                        self._work.wait(timeout=timeout)
                     if self._closing:
                         return
                     if gen is not None and gen != self._worker_gen:

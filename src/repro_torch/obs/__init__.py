@@ -10,8 +10,11 @@ One layer for the telemetry every other subsystem feeds:
                      scheduler's unbounded latency deque); labeled series
                      (tenant, method, slot, shard); `default_registry()`.
   tracing.py         per-request `Span`s through the scheduler pipeline
-                     (queue -> pack -> dispatch -> device -> stitch) and
-                     the `SpanLog` JSONL sink.
+                     (queue -> pack -> dispatch -> device -> stitch), the
+                     `SpanLog` JSONL sink, and the port's layer spans
+                     (`span`, `SpanRecorder`: front door, engine,
+                     consensus, trainer, streaming windows), recorded
+                     while switched on or while a torch profiler runs.
   training_trace.py  `TraceRecorder`, the host-side tap for the ADMM
                      loops' device-side diagnostics (per-iteration NLL,
                      primal/dual residuals, theta trajectories) and the
@@ -26,13 +29,13 @@ from .export import (MetricsServer, parse_prometheus_text, prometheus_text,
                      start_metrics_server)
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       default_latency_buckets, default_registry)
-from .tracing import Span, SpanLog, read_spans
+from .tracing import Span, SpanLog, SpanRecorder, read_spans, span
 from .training_trace import TraceRecorder
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "default_latency_buckets", "default_registry",
-    "Span", "SpanLog", "read_spans",
+    "Span", "SpanLog", "read_spans", "SpanRecorder", "span",
     "TraceRecorder",
     "prometheus_text", "parse_prometheus_text",
     "MetricsServer", "start_metrics_server",
