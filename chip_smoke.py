@@ -2474,7 +2474,7 @@ def phase_train(ctx):
     import torch
     from repro_torch.core.consensus import path_graph
     from repro_torch.core.gp import inner_from_cov, nll, pack
-    from repro_torch.core.gp.nll import cholesky
+    from repro_torch.core.gp.nll import INVERSE_EDGE, _inner_blocked, cholesky
     from repro_torch.core.training import (build_training_cache,
                                            cov_from_cache, train_dec_apx_gp)
     from repro_torch.fleet import FleetConfig, GPFleet
@@ -2610,8 +2610,9 @@ def phase_train(ctx):
                                 grad_fn=plain_local_grad)
     paper_res = paper["residuals"]
 
-    # the three library routes to C^-1 at theta0, one call each after a
-    # warm-up (inner_from_cov takes the triangular solve + product)
+    # the three library routes to C^-1 at theta0 and the blocked route to
+    # inner (inner_from_cov's above INVERSE_EDGE, alpha included), one call
+    # each after a warm-up
     C, _ = cov_from_cache(lt0.expand(cfg.num_agents, -1),
                           build_training_cache(Xp, yp).d2u)
     L = cholesky(C)
@@ -2626,6 +2627,8 @@ def phase_train(ctx):
                                   warmup=1),
         "cholesky_inverse": cuda_ms(lambda: torch.cholesky_inverse(L), 1,
                                     warmup=1),
+        "blocked": cuda_ms(lambda: _inner_blocked(L, yp, INVERSE_EDGE), 1,
+                           warmup=1),
         "cholesky": cuda_ms(lambda: torch.linalg.cholesky_ex(C), 1,
                             warmup=1),
         "inner_from_cov": cuda_ms(lambda: inner_from_cov(C, yp), 1,

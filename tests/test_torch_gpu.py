@@ -13,6 +13,8 @@ This file imports no JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+from importlib import import_module
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +33,10 @@ from repro_torch.kernels import rbf_gram as RG
 from repro_torch.kernels import ops
 from repro_torch.kernels import rbf_matvec as K
 from repro_torch.launch import serve_gp
+from repro_torch.obs import default_registry
+
+# the module, which repro_torch.core.gp's `nll` function shadows
+nll_mod = import_module("repro_torch.core.gp.nll")
 
 pytestmark = pytest.mark.gpu
 
@@ -310,6 +316,61 @@ def test_training_launches_nll_grad_once_per_iteration(cuda):
                                    grad_fn=plain_grad)
     assert G.launches == before + 10
     assert float((th - th_plain).abs().max()) <= 1e-4
+
+
+def _fleet_data(dev, M, N, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    X = 2 * torch.rand(M * N, 2, generator=g, device=dev)
+    X = X[torch.argsort(X[:, 0])]
+    y = torch.sin(2 * X[:, 0]) * torch.cos(3 * X[:, 1]) \
+        + 0.1 * torch.randn(M * N, generator=g, device=dev)
+    return X.reshape(M, N, 2), y.reshape(M, N)
+
+
+def _inner_rel_err(got, want):
+    """max over agents of max |got - want| / max |want|."""
+    return float(((got.double() - want).abs().amax((1, 2))
+                  / want.abs().amax((1, 2))).max())
+
+
+def test_blocked_inverse_matches_float64_at_the_paper_size(cuda):
+    """inner at N = 8,100 (blocked above INVERSE_EDGE) in float32, from
+    the float32 factor, against float64 from the same factor: no further
+    from it than the direct route (a solve against I and one product),
+    and exactly symmetric."""
+    Xp, yp = _fleet_data(cuda, 2, 8100, 11)
+    lt = pack([1.2, 0.3], 1.3, 0.1, dtype=torch.float32, device=cuda)
+    C, _ = cov_from_cache(lt.expand(2, -1), diff2_stack(Xp))
+    L = nll_mod.cholesky(C)
+    assert L.shape[-1] > nll_mod.INVERSE_EDGE
+    want = nll_mod._inner_from_factor(L.double(), yp.double(), 10**9)
+    blocked = nll_mod._inner_from_factor(L, yp, nll_mod.INVERSE_EDGE)
+    assert torch.equal(blocked, blocked.mT)
+    err = _inner_rel_err(blocked, want)
+    del blocked
+    direct = _inner_rel_err(nll_mod._inner_from_factor(L, yp, 10**9), want)
+    assert err <= 2 * direct, (err, direct)
+
+
+def test_training_above_the_edge_takes_the_blocked_route(cuda, monkeypatch):
+    """DEC-apx-GP on 4 x 1,500 points: the route counter reads `blocked`
+    once an iteration, and log theta lies within float32's own error
+    (the direct route in float32 against float64 by autograd) of the
+    direct route forced by a larger edge, as chip_smoke.py's train phase
+    judges its kernel."""
+    Xp, yp = _fleet_data(cuda, 4, 1500, 12)
+    lt0 = pack([2.0, 0.5], 1.0, 1.0, dtype=torch.float32, device=cuda)
+    kw = dict(A=path_graph(4), iters=5)
+    route = default_registry().counter("gp_inner_from_cov_total")
+    before = route.value(route="blocked")
+    th_blocked, _ = train_dec_apx_gp(lt0, Xp, yp, **kw)
+    assert route.value(route="blocked") == before + 5
+    monkeypatch.setattr(nll_mod, "INVERSE_EDGE", 10**9)
+    th_direct, _ = train_dec_apx_gp(lt0, Xp, yp, **kw)
+    th_64, _ = train_dec_apx_gp(lt0.double(), Xp.double(), yp.double(),
+                                grad_fn="autodiff", **kw)
+    f32_error = float((th_direct.double() - th_64).abs().max())
+    assert float((th_blocked - th_direct).abs().max()) <= f32_error
 
 
 def _grbcm_data(dev, M=4, Ni=500, seed=5):

@@ -32,6 +32,7 @@ from repro_torch.core.consensus import path_graph
 from repro_torch.core.gp import (cov_grads, diff2_stack, effective_jitter,
                                  inner_from_cov, nll, nll_from_cov,
                                  nll_grad_analytic)
+from repro_torch.core.gp.nll import _inner_from_factor, cholesky
 from repro_torch.core.training import (TrainingCache, build_training_cache,
                                        cov_from_cache, make_local_grad,
                                        nll_from_cache, nll_grad_cached,
@@ -41,6 +42,7 @@ from repro_torch.core.training import (TrainingCache, build_training_cache,
 from repro_torch.fleet import FleetConfig, GPFleet
 from repro_torch.kernels import nll_grad as G
 from repro_torch.kernels import ops, ref
+from repro_torch.obs import default_registry
 from repro_torch.optim import adam, apply_updates
 
 torch.set_num_threads(2)
@@ -146,6 +148,65 @@ def test_failed_float32_factorization_gives_nan_like_the_reference():
     good = np.array([[2.0, 0.5], [0.5, 1.0]], np.float32)
     both = nll_from_cov(*_t(np.stack([good, C]), np.stack([y, y])))
     assert torch.isfinite(both[0]) and torch.isnan(both[1])
+
+
+def _direct_inner(L, y):
+    """inner by the solve against the identity and one product, written
+    out: the route below the edge, bit for bit."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype)
+    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    Cinv = Linv.mT @ Linv
+    alpha = (Cinv @ y[..., None])[..., 0]
+    return Cinv - alpha[..., :, None] * alpha[..., None, :]
+
+
+@pytest.mark.parametrize("N,edge,M", [
+    (37, 8, 3),     # odd N, uneven halves down to the leaves
+    (9, 8, 2),      # edge + 1: one split
+    (300, 16, 4),   # well above the edge: four levels
+    (257, 16, 1),   # one agent, given without the agent axis
+    (40, 40, 4),    # at the edge: the direct route
+    (25, 64, 2)])   # below it
+def test_inner_from_factor_routes(N, edge, M):
+    """inner = C^-1 - alpha alpha^T by the blocked route above `edge`
+    (forced here by a small edge) and the direct route at or below it:
+    float64 against a dense inverse, exactly symmetric when blocked, bit
+    for bit the solve-and-product route when direct, NaN for the agent
+    whose factor failed only, each call counted under its route."""
+    rng = np.random.default_rng(N + edge)
+    G = rng.normal(size=(M, N, N))
+    C = torch.from_numpy(G @ G.transpose(0, 2, 1) / N + np.eye(N))
+    y = torch.from_numpy(rng.normal(size=(M, N)))
+    # numpy's inverse: a batched torch.linalg.inv (MKL getrf) at N = 300
+    # under torch.set_num_threads(2) never returns on some CPUs
+    Cinv = torch.from_numpy(np.linalg.inv(C.numpy()))
+    alpha = Cinv @ y[..., None]
+    want = Cinv - alpha * alpha.mT
+    blocked = N > edge
+    route = default_registry().counter("gp_inner_from_cov_total")
+    before = {r: route.value(route=r) for r in ("blocked", "direct")}
+
+    L = cholesky(C)
+    if M == 1:
+        inner = _inner_from_factor(L[0], y[0], edge)[None]
+    else:
+        inner = _inner_from_factor(L, y, edge)
+    assert inner.shape == want.shape and inner.is_contiguous()
+    assert _rel(inner, want) <= 1e-12
+    if blocked:
+        assert torch.equal(inner, inner.mT)
+    else:
+        assert torch.equal(inner, _direct_inner(L, y))
+    # a failed factor (C not positive definite) in the last agent
+    C[-1] = -C[-1]
+    inner = _inner_from_factor(cholesky(C), y, edge)
+    assert bool(torch.isnan(inner[-1]).all())
+    if M > 1:
+        assert _rel(inner[:-1], want[:-1]) <= 1e-12
+    counts = {r: route.value(route=r) - before[r]
+              for r in ("blocked", "direct")}
+    assert counts == ({"blocked": 2.0, "direct": 0.0} if blocked
+                      else {"blocked": 0.0, "direct": 2.0})
 
 
 # -- the cached-geometry path and the fused gradient --------------------------
